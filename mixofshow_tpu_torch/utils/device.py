@@ -1,0 +1,43 @@
+"""Device and dtype policy of the port.
+
+* Every entry point takes an explicit `device`; `as_device` refuses None, so
+  nothing silently lands on the CPU.
+* `require_cuda` is the one gate for code that must run on the card: it
+  raises when no CUDA device is visible and never falls back.
+* Compute runs in bf16 (`COMPUTE_DTYPE`) on the card; the DPM-Solver update
+  keeps fp32 latents, as the reference's sampling scan does.
+* `exact_fp32` turns TF32 off for matmuls and cuDNN convolutions: an fp32
+  reference run on the card must not round to TF32's 10-bit mantissa
+  (cuDNN convolutions use TF32 by default).
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+COMPUTE_DTYPE = torch.bfloat16
+
+DeviceLike = Union[str, torch.device]
+
+
+def as_device(device: DeviceLike) -> torch.device:
+    """Normalize an explicit device argument; None is an error, not CPU."""
+    if device is None:
+        raise ValueError('an explicit device is required (e.g. "cuda" or '
+                         '"cpu")')
+    return torch.device(device)
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device, or RuntimeError when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is visible '
+                           '(torch.cuda.is_available() is False)')
+    return torch.device('cuda', 0)
+
+
+def exact_fp32() -> None:
+    """Disable TF32 for matmuls and cuDNN convolutions (process-wide)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
