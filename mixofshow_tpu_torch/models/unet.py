@@ -1,13 +1,16 @@
 """SD1.x UNet2DConditionModel forward as a torch module, NCHW.
 
-Port of mixofshow_tpu/models/unet.py for sampling (no adapters, overrides,
-probability capture or Gram capture in this slice). ED-LoRA specifics:
+Port of mixofshow_tpu/models/unet.py for sampling (no probability or Gram
+capture yet). ED-LoRA specifics:
   * every cross-attention layer has a static index in down→mid→up order (16
     for SD1.5); a 4-D (B, 16, 77, C) context gives each layer its own slice;
   * LoRA is a nested dict mirroring this module tree, threaded to every
     attention linear;
   * `cross_attention_kv` projects every layer's text K/V once per sampling
-    call (they are constant across the denoise steps).
+    call (they are constant across the denoise steps);
+  * regional sampling hands in T2I-Adapter `adapter_features` (added to the
+    down blocks as diffusers 0.19.x does) and a `cross_attn_override` that
+    replaces every cross-attention.
 
 Attention routing follows the JAX package: self-attention with >= 1024 keys
 runs the K1 processor (ops.fused_attention.attention_packed, LoRA folded into
@@ -159,7 +162,10 @@ class Transformer(nn.Module):
         self.proj_out = nn.Conv2d(c, c, 1, **kw)
 
     def forward(self, x, context, layer_idx: int, heads: int, lora=None,
-                alpha=1.0, cross_kv=None):
+                alpha=1.0, cross_kv=None, place: str = 'down',
+                cross_attn_override=None):
+        """`cross_attn_override(attn2, x, ctx, layer_idx, place, (h, w),
+        lora, alpha)` replaces the cross-attention when given."""
         b, c, h, w = x.shape
         hid = conv2d(group_norm(x, self.norm), self.proj_in,
                      maybe(lora, 'proj_in'), alpha)
@@ -168,9 +174,14 @@ class Transformer(nn.Module):
         hid = hid + mh_attention(self.attn1, a, a, heads,
                                  maybe(lora, 'attn1'), alpha)
         ctx = context[:, layer_idx] if context.dim() == 4 else context
-        hid = hid + mh_attention(self.attn2, layer_norm(hid, self.ln2), ctx,
-                                 heads, maybe(lora, 'attn2'), alpha,
-                                 kv=cross_kv)
+        a = layer_norm(hid, self.ln2)
+        if cross_attn_override is not None:
+            hid = hid + cross_attn_override(self.attn2, a, ctx, layer_idx,
+                                            place, (h, w),
+                                            maybe(lora, 'attn2'), alpha)
+        else:
+            hid = hid + mh_attention(self.attn2, a, ctx, heads,
+                                     maybe(lora, 'attn2'), alpha, kv=cross_kv)
         hid = hid + self.ff(layer_norm(hid, self.ln3), maybe(lora, 'ff'),
                             alpha)
         hid = hid.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
@@ -268,10 +279,13 @@ class UNet(nn.Module):
         return out
 
     def forward(self, sample, timesteps, encoder_hidden_states, lora=None,
-                lora_alpha: float = 1.0, cross_kv=None):
+                lora_alpha: float = 1.0, cross_kv=None,
+                adapter_features=None, cross_attn_override=None):
         """Predict noise. sample (B, 4, h, w) NCHW; timesteps (B,) or a
         scalar; encoder_hidden_states (B, 77, C) or layerwise (B, 16, 77, C);
-        `cross_kv` from `cross_attention_kv`."""
+        `cross_kv` from `cross_attention_kv`; `adapter_features` NCHW maps,
+        one per down block (T2IAdapter); `cross_attn_override` replaces
+        every cross-attention (see Transformer.forward)."""
         cfg = self.cfg
         dt = sample.dtype
         if timesteps.dim() == 0:
@@ -284,10 +298,11 @@ class UNet(nn.Module):
         heads = cfg.attention_heads
         idx = 0
 
-        def tfm(mod, x, blora):
+        def tfm(mod, x, blora, place):
             nonlocal idx
             kv = None if cross_kv is None else cross_kv[idx]
-            out = mod(x, ehs, idx, heads, blora, lora_alpha, kv)
+            out = mod(x, ehs, idx, heads, blora, lora_alpha, kv, place,
+                      cross_attn_override)
             idx += 1
             return out
 
@@ -299,14 +314,22 @@ class UNet(nn.Module):
                 x = res(x, temb_act)
                 if cfg.down_cross[i]:
                     x = tfm(blk.attentions[j], x,
-                            maybe(blora, 'attentions', j))
+                            maybe(blora, 'attentions', j), 'down')
                 residuals.append(x)
+            if adapter_features is not None and i < len(adapter_features):
+                # diffusers 0.19.x: in a cross-attention block the feature
+                # lands on the last output, and so on its residual; after a
+                # plain DownBlock2D it leaves that block's residuals alone
+                x = x + adapter_features[i].to(dt)
+                if cfg.down_cross[i]:
+                    residuals[-1] = x
             if hasattr(blk, 'downsample'):
                 x = conv2d(x, blk.downsample)
                 residuals.append(x)
 
         x = self.mid.resnet1(x, temb_act)
-        x = tfm(self.mid.attention, x, maybe(lora, 'mid', 'attention'))
+        x = tfm(self.mid.attention, x, maybe(lora, 'mid', 'attention'),
+                'mid')
         x = self.mid.resnet2(x, temb_act)
 
         for i, blk in enumerate(self.up_blocks):
@@ -315,7 +338,7 @@ class UNet(nn.Module):
                 x = res(torch.cat([x, residuals.pop()], dim=1), temb_act)
                 if cfg.up_cross[i]:
                     x = tfm(blk.attentions[j], x,
-                            maybe(blora, 'attentions', j))
+                            maybe(blora, 'attentions', j), 'up')
             if hasattr(blk, 'upsample'):
                 x = conv2d(F.interpolate(x, scale_factor=2, mode='nearest'),
                            blk.upsample)

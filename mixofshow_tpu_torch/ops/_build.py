@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA C++ kernels (csrc/*.cu).
 
 At first use, `nvcc` compiles every source under `mixofshow_tpu_torch/csrc/`
-for `sm_90a` into one shared library with a plain C interface, placed in
+for `sm_90a`, one process per source, all started together, and links the
+objects into one shared library with a plain C interface, placed in
 `<repo>/.torch_ext/` under a name keyed by a hash of the sources and flags,
 and loaded with ctypes. The sources include no PyTorch header, so the build
 takes seconds; a later process with unchanged sources reuses the library.
@@ -20,11 +21,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / '.torch_ext'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-lineinfo', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-lineinfo', '-Xcompiler', '-fPIC')
 
 # dtype codes of csrc/mma.cuh
 DTYPE_F32 = 0
@@ -35,6 +38,9 @@ _ATTN_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6 + [_c.c_longlong] * 8
               + [_c.c_float, _c.c_int, _c.c_void_p])
 _GEMM_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 3 + [_c.c_longlong] * 2
               + [_c.c_int, _c.c_void_p])
+_REGION_ARGS = ([_c.c_void_p] * 6 + [_c.c_int] * 7
+                + [_c.POINTER(_c.c_int), _c.c_float, _c.c_int, _c.c_void_p])
+_CODES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 
 
 def _nvcc() -> str:
@@ -61,6 +67,21 @@ def library_path() -> Path:
     return BUILD_DIR / f'mos_kernels_{h.hexdigest()[:16]}.so'
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed ({proc.returncode}):\n'
+                          f'{" ".join(cmd)}\n{out}\n{err}')
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
     The output is written under a temporary name and renamed into place,
@@ -70,16 +91,14 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC_DIR), '-o', tmp,
-           *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, f'{src.stem}.o') for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, '-I', str(CSRC_DIR), '-c', '-o', obj,
+                   str(src)] for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmpdir, 'lib.so')
+        _run_all([[nvcc, '-shared', '-o', lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -91,7 +110,33 @@ def cuda_lib() -> ctypes.CDLL:
     lib.mos_attn_fwd.restype = ctypes.c_int
     lib.mos_gemm_bias.argtypes = _GEMM_ARGS
     lib.mos_gemm_bias.restype = ctypes.c_int
+    lib.mos_region_attn.argtypes = _REGION_ARGS
+    lib.mos_region_attn.restype = ctypes.c_int
     return lib
+
+
+def device_type(*ts) -> str:
+    """'cpu' or 'cuda', the one device all tensors lie on; raises otherwise."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError('all tensors must be on one device')
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {dev}')
+    return dev.type
+
+
+def dtype_code(*ts) -> int:
+    """The kernels' dtype code of tensors that share fp32 or bf16."""
+    dt = ts[0].dtype
+    if dt not in _CODES or any(t.dtype != dt for t in ts):
+        raise TypeError(f'kernel takes one dtype of fp32/bf16 throughout, '
+                        f'got {[t.dtype for t in ts]}')
+    return _CODES[dt]
+
+
+def stream(t) -> int:
+    """The current CUDA stream of t's device, as an int for ctypes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

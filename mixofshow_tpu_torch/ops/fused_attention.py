@@ -29,7 +29,6 @@ from mixofshow_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
-_CODES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 
 
 # ----------------------------------------------------------- plain versions
@@ -63,27 +62,6 @@ def attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads: int,
 
 
 # ------------------------------------------------------------------ launches
-def _device(*ts: torch.Tensor) -> str:
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError('all tensors must be on one device')
-    if dev.type not in ('cpu', 'cuda'):
-        raise ValueError(f'unsupported device {dev}')
-    return dev.type
-
-
-def _dtype_code(*ts: torch.Tensor) -> int:
-    dt = ts[0].dtype
-    if dt not in _CODES or any(t.dtype != dt for t in ts):
-        raise TypeError(f'kernel takes one dtype of fp32/bf16 throughout, '
-                        f'got {[t.dtype for t in ts]}')
-    return _CODES[dt]
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _launch_attn(q, k, v, out, kv_len: int) -> None:
     """Launch csrc/attn_fwd.cu on (B, S, H, D) views whose heads are
     contiguous within a token (head stride D, element stride 1)."""
@@ -101,7 +79,7 @@ def _launch_attn(q, k, v, out, kv_len: int) -> None:
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError('attn_fwd needs heads contiguous within a token '
                              f'(strides {t.stride()})')
-    code = _dtype_code(q, k, v, out)
+    code = _build.dtype_code(q, k, v, out)
     lib = _build.cuda_lib()
     with torch.cuda.device(q.device):
         rc = lib.mos_attn_fwd(
@@ -109,7 +87,7 @@ def _launch_attn(q, k, v, out, kv_len: int) -> None:
             b, sq, sk, h, d, kv_len,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            1.0 / math.sqrt(d), code, _stream(q))
+            1.0 / math.sqrt(d), code, _build.stream(q))
     _build.check(rc, 'attn_fwd')
 
 
@@ -123,14 +101,14 @@ def _gemm_bias(x2d, w, bias):
                          f'{x2d.stride()} w{tuple(w.shape)}')
     if bias is not None and (bias.shape != (n,) or not bias.is_contiguous()):
         raise ValueError(f'bias must be contiguous ({n},)')
-    code = _dtype_code(x2d, w, *(() if bias is None else (bias,)))
+    code = _build.dtype_code(x2d, w, *(() if bias is None else (bias,)))
     y = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     lib = _build.cuda_lib()
     with torch.cuda.device(x2d.device):
         rc = lib.mos_gemm_bias(
             x2d.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            m, n, kdim, x2d.stride(0), y.stride(0), code, _stream(x2d))
+            m, n, kdim, x2d.stride(0), y.stride(0), code, _build.stream(x2d))
     _build.check(rc, 'gemm_bias')
     return y
 
@@ -142,7 +120,7 @@ def attn_fwd(q, k, v, kv_len: Optional[int] = None):
     K1: CUDA tensors launch csrc/attn_fwd.cu (bf16 on tensor cores with an
     fp32 softmax, or fp32 throughout); CPU tensors run `attn_fwd_plain`."""
     kv_len = k.shape[1] if kv_len is None else kv_len
-    if _device(q, k, v) == 'cpu':
+    if _build.device_type(q, k, v) == 'cpu':
         return attn_fwd_plain(q, k, v, kv_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_attn(q, k, v, out, kv_len)
@@ -174,7 +152,7 @@ def attention_block(x, ctx, wq, wk, wv, wo, bias, heads: int,
     CUDA tensors: the q, k and v projections (csrc/gemm_bias.cu), the
     attention core (csrc/attn_fwd.cu) and the out-projection, all
     hand-written; CPU tensors run `attention_block_plain`."""
-    if _device(x, ctx, wq, wk, wv, wo) == 'cpu':
+    if _build.device_type(x, ctx, wq, wk, wv, wo) == 'cpu':
         return attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads,
                                      bias_q, bias_k, bias_v)
     b, sq, c = x.shape

@@ -124,18 +124,18 @@ class EDLoRAPipeline:
         return lat
 
     def _denoise(self, embeds, lat, guidance_scale, num_inference_steps,
-                 do_cfg, callback, callback_steps):
+                 do_cfg, callback=None, callback_steps=1, **unet_kw):
+        """The CFG denoise loop; `unet_kw` goes to every UNet eval."""
         solver = self.scheduler
         coeffs = solver.step_coeffs(num_inference_steps)
         lora, alpha = self.unet_lora, self.lora_alpha
-        ckv = self.unet.cross_attention_kv(embeds, lora, alpha)
         sample, m_prev = lat, torch.zeros_like(lat)
         for i in range(len(coeffs.timestep)):
             latent_in = torch.cat([sample, sample]) if do_cfg else sample
             t = int(coeffs.timestep[i])
             ts = torch.full((latent_in.shape[0],), t, device=self.device)
             eps = self.unet(latent_in.to(self.dtype), ts, embeds, lora,
-                            alpha, cross_kv=ckv).float()
+                            alpha, **unet_kw).float()
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -182,9 +182,12 @@ class EDLoRAPipeline:
             b *= n
         lat = self._initial_latents(latents, b, height // 8, width // 8,
                                     seed) * self.scheduler.init_noise_sigma()
-        final = self._denoise(embeds.to(self.dtype), lat, guidance_scale,
+        embeds = embeds.to(self.dtype)
+        ckv = self.unet.cross_attention_kv(embeds, self.unet_lora,
+                                           self.lora_alpha)
+        final = self._denoise(embeds, lat, guidance_scale,
                               num_inference_steps, do_cfg, callback,
-                              callback_steps)
+                              callback_steps, cross_kv=ckv)
         return self._decode(final, output_type)
 
     def __call__(self,

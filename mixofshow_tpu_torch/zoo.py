@@ -3,6 +3,7 @@
 `pretrained_path` forms in this slice:
   random:sd15 | random:tiny — random init at that size, on an explicit
   device, from a seeded torch.Generator on that device.
+`load_t2i_adapter` makes random keypose or sketch adapters the same way.
 Checkpoint directories arrive in a later slice.
 
 Random weights from the same seed differ between this package and the JAX
@@ -19,6 +20,8 @@ from mixofshow_tpu_torch.models import (AutoencoderKL, CLIPTextConfig,
                                         CLIPTextModel, UNet, UNetConfig,
                                         VAEConfig)
 from mixofshow_tpu_torch.models.layers import seeded_init_
+from mixofshow_tpu_torch.models.t2i_adapter import (T2IAdapter,
+                                                    T2IAdapterConfig)
 from mixofshow_tpu_torch.text import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import as_device
 
@@ -61,3 +64,19 @@ def load_models(pretrained_path: str, device, seed: int = 0,
         te = seeded_init_(CLIPTextModel(ccfg, dev, dtype), gen(1))
         vae = seeded_init_(AutoencoderKL(vcfg, dev, dtype), gen(2))
     return ModelBundle(unet.eval(), te.eval(), vae.eval(), CLIPTokenizer())
+
+
+def load_t2i_adapter(kind: str, size: str, device, seed: int = 0,
+                     dtype=torch.float32) -> T2IAdapter:
+    """Random-init T2I-Adapter: `kind` 'keypose' (3 input channels) or
+    'sketch' (1), `size` 'sd15' (channels 320/640/1280/1280) or 'tiny', drawn
+    from a generator seeded `seed` on `device`."""
+    cins = {'keypose': 3, 'sketch': 1}
+    if kind not in cins or size not in ('sd15', 'tiny'):
+        raise ValueError(f'unsupported adapter {kind!r} at {size!r}')
+    cfg = T2IAdapterConfig.tiny(cins[kind]) if size == 'tiny' else \
+        T2IAdapterConfig(in_channels=cins[kind])
+    dev = as_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        return seeded_init_(T2IAdapter(cfg, dev, dtype), gen).eval()

@@ -19,7 +19,10 @@ import torch
 from mixofshow_tpu_torch import ops, zoo
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
-from mixofshow_tpu_torch.pipelines import EDLoRAPipeline, init_concepts
+from mixofshow_tpu_torch.ops import region_attention as ra
+from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
+                                           RegionallyT2IAdapterPipeline,
+                                           init_concepts)
 from mixofshow_tpu_torch.utils.device import exact_fp32
 
 pytestmark = pytest.mark.cuda
@@ -139,5 +142,94 @@ def test_tiny_pipeline_card_matches_cpu(dev):
                 num_inference_steps=2, latents=lat, output_type='np')
     ops.reset_launch_counts()
     img = gpu(**args)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    # the plain path runs K1, K2 and K3; K7 belongs to the regional path
+    assert all(counts[k] > 0 for k in ('attn_fwd', 'gn_spatial_sums',
+                                       'attn_block'))
+    assert counts['region_attn'] == 0
     np.testing.assert_allclose(img, cpu(**args), atol=2e-3)
+
+
+THREE_BOXES = [[0.02, 0.05, 0.95, 0.30], [0.02, 0.35, 0.95, 0.62],
+               [0.02, 0.68, 0.95, 0.97]]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', [
+    (4, 64, 64, 8, 40, 77, THREE_BOXES),       # the SD1.5 layers at 512²
+    (4, 32, 32, 8, 80, 77, THREE_BOXES),
+    (4, 16, 16, 8, 160, 77, THREE_BOXES),
+    (4, 8, 8, 8, 160, 77, THREE_BOXES),
+    (2, 12, 20, 2, 24, 77, [[0.0, 0.0, 1.0, 0.5], [0.25, 0.25, 0.875, 1.0],
+                            [0.1, 0.2, 0.9, 0.8]]),   # ragged, overlapping
+    (1, 9, 7, 3, 64, 100, [[0.5, 0.5, 0.5, 0.9], [0.0, 0.0, 1.0, 1.0]]),
+    (2, 8, 16, 1, 16, 5, [[0.3, 0.0, 0.7, 0.6]])])
+def test_region_attention_matches_plain(dev, dtype, b, h, w, heads, d, sk,
+                                        boxes):
+    q = _randn(dev, b, h * w, heads, d, dtype=dtype, seed=1)
+    gk, gv = (_randn(dev, b, sk, heads, d, dtype=dtype, seed=s)
+              for s in (2, 3))
+    rk, rv = (_randn(dev, len(boxes), b, sk, heads, d, dtype=dtype, seed=s)
+              for s in (4, 5))
+    px = ra.boxes_to_grid(boxes, h, w)
+    before = ra.region_attention.launches
+    out = ra.region_attention(q, gk, gv, rk, rv, px, (h, w))
+    torch.cuda.synchronize()
+    assert ra.region_attention.launches == before + 1
+    ref = ra.region_attention_plain(q.float(), gk.float(), gv.float(),
+                                    rk.float(), rv.float(), px, (h, w))
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=0)
+
+
+def test_region_attention_raises_on_what_it_cannot_take(dev):
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+    q, kv, rkv = t(1, 16, 2, 16), t(1, 77, 2, 16), t(1, 1, 77, 2, 16)
+    box = [[0, 0, 2, 2]]
+    with pytest.raises(ValueError, match='head dim'):
+        ra.region_attention(t(1, 16, 1, 168), t(1, 77, 1, 168),
+                            t(1, 77, 1, 168), t(1, 1, 77, 1, 168),
+                            t(1, 1, 77, 1, 168), box, (4, 4))
+    with pytest.raises(ValueError, match='regions'):
+        ra.region_attention(q, kv, kv, rkv.expand(17, -1, -1, -1, -1)
+                            .contiguous(), rkv.expand(17, -1, -1, -1, -1)
+                            .contiguous(), box * 17, (4, 4))
+    with pytest.raises(ValueError, match='shape mismatch'):
+        ra.region_attention(q, kv, kv, rkv, rkv, box, (4, 5))
+    with pytest.raises(ValueError, match='contiguous'):
+        ra.region_attention(t(1, 2, 16, 16).transpose(1, 2), kv, kv, rkv,
+                            rkv, box, (4, 4))
+    with pytest.raises(TypeError):
+        ra.region_attention(q.half(), kv, kv, rkv, rkv, box, (4, 4))
+    with pytest.raises(ValueError, match='one device'):
+        ra.region_attention(q, kv.cpu(), kv, rkv, rkv, box, (4, 4))
+
+
+def test_tiny_regional_pipeline_card_matches_cpu(dev):
+    """fp32 tiny regional pipeline at 256x256 with 2 regions and a keypose
+    adapter: card vs CPU, with all four kernels launched."""
+    exact_fp32()
+    b = zoo.load_models('random:tiny', 'cpu', seed=0)
+    cfg, table = init_concepts(b.tokenizer, '<c1>+<c2>', None,
+                               b.text_encoder.token_embedding.weight)
+    adapter = zoo.load_t2i_adapter('keypose', 'tiny', 'cpu', seed=3)
+    mods = (b.unet, b.text_encoder, b.vae, adapter)
+    kw = dict(dtype=torch.float32, new_concept_cfg=cfg,
+              concept_embedding=table)
+    gpu_mods = copy.deepcopy(mods)
+    gpu = RegionallyT2IAdapterPipeline(*gpu_mods[:3], b.tokenizer, dev,
+                                       keypose_adapter=gpu_mods[3], **kw)
+    cpu = RegionallyT2IAdapterPipeline(*mods[:3], b.tokenizer, 'cpu',
+                                       keypose_adapter=mods[3], **kw)
+    pose = np.zeros((256, 256, 3), np.float32)
+    pose[64:192, 96:160] = 1.0
+    layout = [('two friends', [('a <c1>', 'blurry', [0.0, 0.0, 1.0, 0.6]),
+                               ('a <c2>', '', [0.2, 0.4, 0.9, 1.0])])]
+    lat = torch.randn(1, 4, 32, 32, generator=torch.Generator().manual_seed(0))
+    args = dict(keypose_adapter_input=pose, height=256, width=256,
+                num_inference_steps=2, latents=lat, output_type='np')
+    ops.reset_launch_counts()
+    img = gpu(layout, **args)
+    assert all(n > 0 for n in ops.launch_counts().values())
+    np.testing.assert_allclose(img, cpu(layout, **args), atol=2e-3)
