@@ -11,11 +11,17 @@ line when any fails, or when no CUDA device is visible):
                 kernel, timing each;
   3. kernels  — each kernel against its plain PyTorch version on the same
                 inputs at the main paths' shapes, error against a stated
-                bound, and both times from CUDA events;
-  4. wiring   — the tiny config in fp32 (TF32 off) at 512x512, 2 steps, on
-                the card and on the CPU, images compared: EDLoRAPipeline
-                (K1, K2, K3 launch) and RegionallyT2IAdapterPipeline with 2
-                regions and a keypose adapter (all four launch);
+                bound, and both times from CUDA events; the flash kernels
+                (K4-K6) also in fp32 against autograd of the plain
+                attention, a backward rerun that must be bit-identical, and
+                a planted fault (the plain backward without Dvec) that must
+                come out over the bf16 bound;
+  4. wiring   — the tiny config in fp32 (TF32 off) at 512x512 on the card
+                and on the CPU: EDLoRAPipeline, 2 steps (K1, K2, K3 launch,
+                no flash kernel) and RegionallyT2IAdapterPipeline with 2
+                regions and a keypose adapter (K7 too), images compared; one
+                EDLoRATrainer loss and backward (10 launches each of K4, K5,
+                K6, none of K1), loss and every gradient group compared;
   5. main     — ED-LoRA path: SD1.5-width UNet, CLIP and VAE in bf16,
                 random weights from a seeded generator on the card, two
                 concept tokens; two requests of 2 prompts at 512x512, CFG
@@ -28,14 +34,32 @@ line when any fails, or when no CUDA device is visible):
                 the repository's keypose image, 2 images at 512x512, CFG
                 7.5, 50 steps, one request through __call__ and one through
                 submit().result(). Checks as in 5, and that every request
-                launched K7 16 x 50 times and K1, K2, K3 too.
-Then one JSON line with the kernels (launches: phases 5 and 6 together),
-the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+                launched K7 16 x 50 times and K1, K2, K3 too;
+  7. train    — ED-LoRA training at SD1.5 width through the port's CLI
+                (train_edlora.main, in-process) on the repository's config
+                options/train/EDLoRA/real/EDLoRA_hermione_B4_Repeat500.yml
+                (bf16, batch 2 at 512x512, rank-4 LoRA on text and UNet
+                attention, the reference learning rates, attention
+                regularization), overriding only the data (a seeded
+                synthetic concept, 4 images 640x512 with captions and
+                masks, in a temporary directory), random:sd15 weights, 6
+                steps, no validation, a log line every step and one save
+                after the last. Checks a finite loss at every step; that the
+                embedding, the text LoRA and the UNet LoRA (every attn1
+                leaf included) moved; that the saved .pth reloads with the
+                reference keys; and per step 10 launches each of K4, K5,
+                K6, no K1, one K3 and the encoder's K2 count.
+Phases 5 and 6 also check that no flash kernel launched. Then one JSON line
+with the kernels (launches: phases 5, 6 and 7 together), the nvidia-smi
+line, and the last line {"ok": true, "device": {...}}.
 """
 import copy
 import json
 import math
+import os
+import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -43,14 +67,22 @@ import numpy as np
 import torch
 from PIL import Image
 
-from mixofshow_tpu_torch import ops, zoo
+import yaml
+from torch import nn
+
+from mixofshow_tpu_torch import ops, train_edlora, zoo
+from mixofshow_tpu_torch.models.lora import flatten_lora
 from mixofshow_tpu_torch.ops import _build
+from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
 from mixofshow_tpu_torch.ops import region_attention as ra
 from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
                                            RegionallyT2IAdapterPipeline,
+                                           bind_concept_prompt,
                                            init_concepts)
+from mixofshow_tpu_torch.pipelines.trainer_edlora import EDLoRATrainer
+from mixofshow_tpu_torch.text import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
 
 # bf16 kernels against the fp32 plain version on the same bf16 inputs:
@@ -58,10 +90,24 @@ from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
 # expected; 3e-2 is the bound the JAX suite uses for its bf16 attention
 # kernels (tests/test_ops.py).
 ATTN_BOUND = 3e-2
+# bf16 flash kernels (K4-K6), the training path's: the largest error
+# relative to the twin's largest entry (one bf16 ulp there is 2^-8 to 2^-7
+# of it), tight enough that a backward dropping Dvec from dS is over it
+# (phase 3 shows that it is); the fp32 LSE absolute
+FLASH_BF16_REL = 2e-2
+FLASH_LSE_BOUND = 1e-3
 # fp32 sums over up to 262144 elements, relative to the sum of magnitudes
 SUMS_BOUND = 1e-4
+# fp32 flash kernels against their twins and against autograd of the plain
+# attention: fp32 sums over up to 4096 keys in another order
+FLASH_F32_BOUND = 1e-4
 # tiny fp32 pipeline, card vs CPU, pixels in [0, 1]
 WIRING_BOUND = 2e-3
+# tiny fp32 train step, card vs CPU: the loss, and each gradient group's
+# largest difference relative to its largest entry (fp32 sums in another
+# order through the UNet, CLIP and the VAE encode)
+WIRING_TRAIN_BOUND = 1e-3
+TRAIN_STEPS = 6
 
 KERNEL_META = {
     'attn_fwd': ('cuda', 'mixofshow_tpu_torch/csrc/attn_fwd.cu',
@@ -72,8 +118,16 @@ KERNEL_META = {
                    'mixofshow_tpu/ops/fused_attention.py:63'),
     'region_attn': ('cuda', 'mixofshow_tpu_torch/csrc/region_attn.cu',
                     'mixofshow_tpu/ops/region_attention.py:66'),
+    'flash_fwd': ('cuda', 'mixofshow_tpu_torch/csrc/attn_fwd.cu',
+                  'mixofshow_tpu/ops/flash_attention.py:50'),
+    'flash_bwd_dkv': ('cuda', 'mixofshow_tpu_torch/csrc/flash_bwd_dkv.cu',
+                      'mixofshow_tpu/ops/flash_attention.py:181'),
+    'flash_bwd_dq': ('cuda', 'mixofshow_tpu_torch/csrc/flash_bwd_dq.cu',
+                     'mixofshow_tpu/ops/flash_attention.py:234'),
 }
+FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
 PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block')
+SAMPLING_KERNELS = PLAIN_PATH_KERNELS + ('region_attn',)
 # bench.py's three near-full-height boxes, (start_h, start_w, end_h, end_w)
 REGIONS = [('a <potter1> <potter2>, in a jacket', 'low quality',
             [0.02, 0.05, 0.95, 0.30]),
@@ -82,9 +136,13 @@ REGIONS = [('a <potter1> <potter2>, in a jacket', 'low quality',
            ('a <thanos1> <thanos2>, with armor', 'low quality',
             [0.02, 0.68, 0.95, 0.97])]
 CONCEPTS = '<potter1> <potter2>+<hermione1> <hermione2>+<thanos1> <thanos2>'
-POSE = Path(__file__).resolve().parent / 'datasets' / \
-    'validation_spatial_condition' / 'multi-characters' / 'real_pose' / \
-    'potter_hermione_thanos_pose.png'
+ROOT = Path(__file__).resolve().parent
+POSE = ROOT / 'datasets' / 'validation_spatial_condition' / \
+    'multi-characters' / 'real_pose' / 'potter_hermione_thanos_pose.png'
+# the repository's ED-LoRA training config; phase 7 overrides only the data,
+# the weights, the length, validation and logging
+TRAIN_YML = ROOT / 'options' / 'train' / 'EDLoRA' / 'real' / \
+    'EDLoRA_hermione_B4_Repeat500.yml'
 
 
 def check(cond, msg):
@@ -123,14 +181,14 @@ def phase_build(dev):
         gs.spatial_sums(torch.ones(1, 8, 4, 4, device=dev, dtype=dt))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    print(f'[build] nvcc K1+K3+K7 library: {t_cuda:.2f} s '
+    print(f'[build] nvcc K1 K3 K4-K7 library: {t_cuda:.2f} s '
           f'({_build.library_path().name}); Triton K2 JIT (bf16+fp32): '
           f'{t_triton:.2f} s', flush=True)
 
 
 def phase_kernels(dev):
     """Each kernel vs its plain version; returns {name: (err, ms, plain_ms)}
-    at the first (main-path) shape of each."""
+    at the first (main-path) shape of each, the flash kernels' included."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -211,6 +269,104 @@ def phase_kernels(dev):
         check(math.isfinite(err) and err <= ATTN_BOUND,
               'region_attn disagrees')
         res.setdefault('region_attn', (err, ms, pms))
+    res.update(flash_kernel_checks(dev))
+    return res
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _flash_err(got, want):
+    """Largest error against the twin: relative to the twin's largest entry
+    in bf16 (FLASH_BF16_REL), absolute in fp32 (FLASH_F32_BOUND)."""
+    err = _max_err(got, want)
+    if want.dtype == torch.bfloat16:
+        return err / want.float().abs().max().item()
+    return err
+
+
+def flash_kernel_checks(dev):
+    """K4, K5 and K6 against their plain twins at the training path's
+    shapes (SD1.5, 512², batch 2: the res-64 and res-32 self-attentions), a
+    ragged Sq/Sk and fp32; the fp32 backward also against autograd of the
+    plain attention, and a rerun that must be bit-identical. The bound must
+    reject a planted fault: the twin's backward without Dvec. Returns
+    {name: (max_abs_err, ms, plain_ms)} at the first shape."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    res = {}
+    cases = [((2, 4096, 8, 40), 4096, torch.bfloat16),
+             ((2, 1024, 8, 80), 1024, torch.bfloat16),
+             ((2, 1000, 8, 40), 1100, torch.bfloat16),
+             ((2, 1024, 2, 32), 1100, torch.float32)]
+    for (b, sq, h, d), sk, dt in cases:
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+        q, k, v = randn(b, sq, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
+        do = randn(b, sq, h, d)
+        bf16 = dt == torch.bfloat16
+        bound = FLASH_BF16_REL if bf16 else FLASH_F32_BOUND
+        lse_bound = FLASH_LSE_BOUND if bf16 else FLASH_F32_BOUND
+        o, lse = fl.flash_fwd(q, k, v)
+        ro, rlse = fl.flash_fwd_plain(q, k, v)
+        dvec = fl.flash_dvec(do, o)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, dvec)
+        dq = fl.flash_bwd_dq(q, k, v, do, lse, dvec)
+        rq, rk, rv = fl.flash_bwd_plain(q, k, v, do, lse, dvec)
+        fq, fk, _ = fl.flash_bwd_plain(q, k, v, do, lse,
+                                       torch.zeros_like(dvec))
+        errs = {'flash_fwd': _flash_err(o, ro),
+                'flash_bwd_dkv': max(_flash_err(dk, rk), _flash_err(dv, rv)),
+                'flash_bwd_dq': _flash_err(dq, rq)}
+        lse_err = _max_err(lse, rlse)
+        fault = {'dk': _flash_err(fk, rk), 'dq': _flash_err(fq, rq)}
+        abs_errs = {'flash_fwd': max(_max_err(o, ro), lse_err),
+                    'flash_bwd_dkv': max(_max_err(dk, rk), _max_err(dv, rv)),
+                    'flash_bwd_dq': _max_err(dq, rq)}
+        dk2, dv2 = fl.flash_bwd_dkv(q, k, v, do, lse, dvec)
+        dq2 = fl.flash_bwd_dq(q, k, v, do, lse, dvec)
+        same = all(torch.equal(a, c) for a, c in
+                   ((dk, dk2), (dv, dv2), (dq, dq2)))
+        kind = 'of max|twin|' if bf16 else 'absolute'
+        line = (f'[kernels] flash (B,Sq,H,D)=({b},{sq},{h},{d}) Sk={sk} '
+                f'{str(dt)[6:]}: errors vs twin ({kind}) o '
+                f'{errs["flash_fwd"]:.3e}, dk/dv {errs["flash_bwd_dkv"]:.3e}'
+                f', dq {errs["flash_bwd_dq"]:.3e} (bound {bound}); lse '
+                f'{lse_err:.3e} absolute (bound {lse_bound}); planted fault '
+                f'(no Dvec) dk {fault["dk"]:.3e}, dq {fault["dq"]:.3e} (must '
+                f'exceed {bound}); max_abs_err '
+                + ', '.join(f'{n} {e:.3e}' for n, e in abs_errs.items())
+                + f'; rerun bit-identical {same}')
+        if not bf16:
+            qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+            fa.attn_fwd_plain(qa, ka, va).backward(do)
+            auto = max(_max_err(dq, qa.grad), _max_err(dk, ka.grad),
+                       _max_err(dv, va.grad))
+            line += f'; vs autograd of attn_fwd_plain {auto:.3e}'
+            check(math.isfinite(auto) and auto <= bound,
+                  'flash backward disagrees with autograd')
+        times = {
+            'flash_fwd': (cuda_ms(lambda: fl.flash_fwd(q, k, v)),
+                          cuda_ms(lambda: fl.flash_fwd_plain(q, k, v))),
+            'flash_bwd_dkv': (
+                cuda_ms(lambda: fl.flash_bwd_dkv(q, k, v, do, lse, dvec)),
+                cuda_ms(lambda: fl.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                       dvec))),
+            'flash_bwd_dq': (
+                cuda_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, dvec)),
+                cuda_ms(lambda: fl.flash_bwd_dq_plain(q, k, v, do, lse,
+                                                      dvec)))}
+        line += '; ' + ', '.join(f'{n} {t[0]:.4f} ms (plain {t[1]:.4f})'
+                                 for n, t in times.items())
+        print(line, flush=True)
+        check(same, 'flash backward reruns differ')
+        check(math.isfinite(lse_err) and lse_err <= lse_bound,
+              'flash_fwd lse disagrees')
+        check(all(v > bound for v in fault.values()),
+              f'flash bound {bound} does not reject the planted fault')
+        for name, err in errs.items():
+            check(math.isfinite(err) and err <= bound, f'{name} disagrees')
+            res.setdefault(name, (abs_errs[name], *times[name]))
     return res
 
 
@@ -239,8 +395,9 @@ def _wiring_run(name, gpu, cpu, args, kw, expect):
           flush=True)
     check(img_gpu.shape == img_cpu.shape and img_gpu.shape[1:] ==
           (512, 512, 3), f'wiring: {name} gave {img_gpu.shape}')
-    check(all(counts[k] > 0 for k in expect),
-          f'wiring: {name}: a kernel did not launch: {counts}')
+    check(all(counts[k] > 0 for k in expect) and
+          all(counts[k] == 0 for k in FLASH_KERNELS),
+          f'wiring: {name}: unexpected launches: {counts}')
     check(np.isfinite(img_gpu).all() and err <= WIRING_BOUND,
           f'wiring: {name}: card and CPU disagree')
 
@@ -265,7 +422,7 @@ def phase_wiring(dev):
     _wiring_run('regional', gpu, cpu, (layout,),
                 dict(kw, latents=lat[:1], negative_prompt='low quality',
                      keypose_adapter_input=Image.open(POSE).convert('RGB')),
-                tuple(KERNEL_META))
+                SAMPLING_KERNELS)
 
 
 def phase_main(dev, card):
@@ -304,8 +461,9 @@ def phase_main(dev, card):
               f'main: {name} gave a constant image')
     check(np.array_equal(out_call, out_submit),
           'main: two runs with the same latents differ')
-    check(all(counts[k] > 0 for k in PLAIN_PATH_KERNELS),
-          f'main: a kernel did not launch: {counts}')
+    check(all(counts[k] > 0 for k in PLAIN_PATH_KERNELS) and
+          all(counts[k] == 0 for k in FLASH_KERNELS),
+          f'main: unexpected launches: {counts}')
     print(f'[main] 2 prompts 512x512, 50 steps, CFG 7.5: __call__ '
           f'{t_call:.3f} s ({2 / t_call:.4f} img/s, first request), '
           f'submit().result() {t_submit:.3f} s ({2 / t_submit:.4f} img/s; '
@@ -358,7 +516,8 @@ def phase_regional(dev, card):
           'regional: two runs with the same latents differ')
     for req in (first, second):
         check(req['region_attn'] == 16 * 50 and
-              all(req[k] > 0 for k in PLAIN_PATH_KERNELS),
+              all(req[k] > 0 for k in PLAIN_PATH_KERNELS) and
+              all(req[k] == 0 for k in FLASH_KERNELS),
               f'regional: launches per request {first}, {second}')
     print(f'[regional] 3 regions, keypose, 2 images 512x512, 50 steps, CFG '
           f'7.5: __call__ {t_call:.3f} s ({2 / t_call:.4f} img/s, first '
@@ -366,6 +525,217 @@ def phase_regional(dev, card):
           f' img/s; submit() returned after {t_queued:.3f} s); {card}; '
           f'launches per request {first}, {second}', flush=True)
     return counts
+
+
+def _concept_batch(trainer, b, img, seed):
+    """A tensorized batch as the data pipeline emits it (JAX layout)."""
+    rng = np.random.default_rng(seed)
+    bound = bind_concept_prompt(['a photo of <c1> <c2> at the beach'] * b,
+                                trainer.new_concept_cfg)
+    ids = trainer.tokenizer(bound).reshape(b, 16, 77)
+    pos = [i for i, t in enumerate(ids[0, 0])
+           if t in trainer.concept_token_ids][:2]
+    lat = img // 8
+    masks = np.ones((b, lat, lat, 1), np.float32)
+    masks[:, :lat // 3] = 0
+    return {'images': rng.uniform(-1, 1, (b, img, img, 3)).astype(np.float32),
+            'text_ids': ids.astype(np.int32), 'masks': masks,
+            'img_masks': np.ones((b, lat, lat, 1), np.float32),
+            'concept_pos': np.asarray([pos] * b, np.int32),
+            'concept_pos_mask': np.ones((b, 2), np.float32)}
+
+
+def _grad_groups(trainable):
+    return {'embedding': [trainable['concept_embedding'].grad],
+            'text LoRA': [t.grad for leaf in flatten_lora(
+                trainable['text_lora']).values() for t in leaf.values()],
+            'UNet LoRA': [t.grad for leaf in flatten_lora(
+                trainable['unet_lora']).values() for t in leaf.values()]}
+
+
+def _encoder_norms(vae):
+    return sum(isinstance(m, nn.GroupNorm) for m in vae.encoder.modules())
+
+
+def phase_wiring_train(dev):
+    """One tiny fp32 EDLoRATrainer loss and backward at 512x512 (the tiny
+    UNet's res-64 and res-32 self-attentions take the flash route), card vs
+    CPU, on the same batch and draws."""
+    exact_fp32()
+    b = zoo.load_models('random:tiny', 'cpu', seed=0)
+    mods = (b.unet, b.text_encoder, b.vae)
+    m = yaml.safe_load(TRAIN_YML.read_text())['models']
+    kw = dict(new_concept_token='<c1>+<c2>',
+              initializer_token='<rand-0.013>+<rand-0.017>',
+              finetune_cfg=m['finetune_cfg'], noise_offset=m['noise_offset'],
+              attn_reg_weight=m['attn_reg_weight'],
+              reg_full_identity=m['reg_full_identity'],
+              compute_dtype=torch.float32)
+    gpu = EDLoRATrainer(*copy.deepcopy(mods), CLIPTokenizer(), dev, **kw)
+    cpu = EDLoRATrainer(*mods, CLIPTokenizer(), 'cpu', **kw)
+    opt = train_edlora.make_optimizer(m['finetune_cfg'], 10)
+    batch = _concept_batch(cpu, 2, 512, seed=0)
+    draws = cpu.make_draws(2, (64, 64), torch.Generator().manual_seed(0))
+    res = []
+    for trainer in (gpu, cpu):
+        state = trainer.init_state(opt)
+        with torch.no_grad():   # non-zero ups: every LoRA leaf gets a grad
+            for leaf in flatten_lora(state.trainable['unet_lora']).values():
+                leaf['up'].fill_(0.01)
+        ops.reset_launch_counts()
+        loss, ld = trainer.loss_fn(state.trainable, batch, draws=draws)
+        loss.backward()
+        res.append((loss.item(), ld, _grad_groups(state.trainable),
+                    ops.launch_counts()))
+    (gl, gld, gg, counts), (cl, cld, cg, _) = res
+    errs = {'loss': abs(gl - cl) / abs(cl),
+            'attn_reg': abs(gld['loss_attn_reg'].item() -
+                            cld['loss_attn_reg'].item()) /
+            abs(cld['loss_attn_reg'].item())}
+    for name in gg:
+        scale = max(t.abs().max().item() for t in cg[name])
+        errs[name] = max((a.cpu() - c).abs().max().item()
+                         for a, c in zip(gg[name], cg[name])) / scale
+        check(scale > 0, f'wiring train: no {name} gradient on the CPU')
+    print(f'[wiring] train step: tiny fp32 512x512 b2, card vs CPU: loss '
+          f'{gl:.6f} vs {cl:.6f}; relative errors '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bound {WIRING_TRAIN_BOUND}); launches {counts}', flush=True)
+    check(all(math.isfinite(v) and v <= WIRING_TRAIN_BOUND
+              for v in errs.values()), 'wiring train: card and CPU disagree')
+    want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
+            'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
+            'gn_spatial_sums': _encoder_norms(gpu.vae)}
+    check(all(counts[k] == n for k, n in want.items()),
+          f'wiring train: launches {counts}, expected {want}')
+
+
+def _write_concept(root: Path, seed: int = 0):
+    """4 seeded synthetic 640x512 images with captions and masks, the
+    concept list, and TRAIN_YML pointed at them; returns the YAML's path."""
+    rng = np.random.default_rng(seed)
+    dirs = {n: root / n for n in ('img', 'mask', 'caption')}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    yy, xx = np.mgrid[0:640, 0:512]
+    for i in range(4):
+        base = rng.uniform(0, 255, (1, 1, 3))
+        img = base + 40 * np.sin(xx[..., None] / (17 + 5 * i)
+                                 + yy[..., None] / 23 + rng.uniform(0, 6, 3))
+        img += rng.normal(0, 12, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            dirs['img'] / f'{i}.png')
+        m = np.zeros((640, 512), np.uint8)
+        m[100 + 20 * i:560, 96:416 - 10 * i] = 255
+        Image.fromarray(m).save(dirs['mask'] / f'{i}.png')
+        (dirs['caption'] / f'{i}.txt').write_text(
+            f'<TOK>, a person in a red coat, photo {i}\n')
+    concept = root / 'concept.json'
+    concept.write_text(json.dumps([{
+        'instance_prompt': '<TOK>', 'instance_data_dir': str(dirs['img']),
+        'caption_dir': str(dirs['caption']), 'mask_dir': str(dirs['mask'])}]))
+    opt = yaml.safe_load(TRAIN_YML.read_text())
+    opt['manual_seed'] = seed
+    train = opt['datasets']['train']
+    train['concept_list'] = str(concept)
+    train['dataset_enlarge_ratio'] = TRAIN_STEPS * \
+        train['batch_size_per_gpu'] // 4
+    opt['models']['pretrained_path'] = 'random:sd15'
+    opt['path'] = {'experiments_root': str(root / 'experiment')}
+    opt['val']['val_during_save'] = False
+    # one save, after the last step's mark: no save inside a timed step
+    opt['logger'] = {'print_freq': 1, 'save_checkpoint_freq': TRAIN_STEPS}
+    path = root / 'edlora_sd15.yml'
+    path.write_text(yaml.safe_dump(opt))
+    return path
+
+
+def phase_train(dev, card):
+    root = Path(tempfile.mkdtemp(prefix='mos_chip_train_'))
+    try:
+        yml = _write_concept(root)
+        marks = []
+
+        def on_step(step, loss_dict):
+            torch.cuda.synchronize()
+            marks.append((step, time.perf_counter(), ops.launch_counts(),
+                          {k: float(v) for k, v in loss_dict.items()}))
+            if step == 0:
+                torch.cuda.reset_peak_memory_stats()
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, state, _ = train_edlora.main(
+            ['-opt', str(yml), '--device', str(dev)], on_step=on_step)
+        t_total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check([m[0] for m in marks] == list(range(TRAIN_STEPS + 1)),
+              f'train: steps {[m[0] for m in marks]}')
+        enc_norms = _encoder_norms(trainer.vae)
+        want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
+                'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
+                'gn_spatial_sums': enc_norms}
+        step_s = []
+        for prev, cur in zip(marks, marks[1:]):
+            per = {k: cur[2][k] - prev[2][k] for k in cur[2]}
+            check(per == {**per, **want},
+                  f'train: step {cur[0]} launches {per}, expected {want}')
+            check(all(math.isfinite(v) for v in cur[3].values()),
+                  f'train: step {cur[0]} loss {cur[3]}')
+            step_s.append(cur[1] - prev[1])
+
+        # every trainable group moved, every attn1 LoRA leaf included
+        init, now = trainer.trainable_init, state.trainable
+        moved = {'embedding': (now['concept_embedding'] -
+                               init['concept_embedding']).abs().max().item()}
+        for key, name in (('text_lora', 'text LoRA'),
+                          ('unet_lora', 'UNet LoRA')):
+            a, b = flatten_lora(init[key]), flatten_lora(now[key])
+            moved[name] = min((b[p][n] - a[p][n]).abs().max().item()
+                              for p in a for n in ('down', 'up'))
+        attn1 = [p for p in flatten_lora(now['unet_lora']) if '/attn1/' in p]
+        moved['attn1 leaves'] = min(
+            (flatten_lora(now['unet_lora'])[p][n] -
+             flatten_lora(init['unet_lora'])[p][n]).abs().max().item()
+            for p in attn1 for n in ('down', 'up'))
+        check(len(attn1) == 64 and all(v > 0 for v in moved.values()),
+              f'train: a trainable group did not move: {moved}')
+
+        # the saved delta reloads with the reference keys and the values
+        models = root / 'experiment' / 'models'
+        saved = sorted(os.listdir(models))
+        delta = torch.load(models / 'edlora_model-latest.pth',
+                           map_location='cpu', weights_only=True)['params']
+        te, un = delta['text_encoder'], delta['unet']
+        key_q = ('down_blocks.0.attentions.0.transformer_blocks.0.attn1.'
+                 'to_q.lora_up.weight')
+        tokens = sorted(trainer.new_concept_cfg)
+        check(saved == [f'edlora_model-{TRAIN_STEPS}.pth',
+                        'edlora_model-latest.pth']
+              and set(delta['new_concept_embedding']) == set(tokens)
+              and delta['new_concept_embedding'][tokens[0]].shape ==
+              (16, 768) and len(te) == 12 * 4 * 2 and len(un) == 16 * 8 * 2
+              and 'text_model.encoder.layers.11.self_attn.out_proj.'
+                  'lora_down.weight' in te
+              and torch.equal(un[key_q], flatten_lora(now['unet_lora'])[
+                  'down_blocks/0/attentions/0/attn1/to_q']['up'].detach()
+                  .cpu()),
+              f'train: saved delta {saved}, {len(te)} text and {len(un)} '
+              'UNet keys')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steady = sum(step_s[1:]) / len(step_s[1:])
+    losses = [round(m[3]['loss'], 5) for m in marks[1:]]
+    print(f'[train] SD1.5 ED-LoRA through train_edlora.main, bf16, batch 2, '
+          f'512x512, {TRAIN_STEPS} steps: first step {step_s[0]:.3f} s, '
+          f'steady {steady:.4f} s/step ({1 / steady:.3f} steps/s; steps '
+          + ', '.join(f'{t:.3f}' for t in step_s) + f' s); whole run '
+          f'{t_total:.2f} s; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB (max_memory_allocated over the steps);'
+          f' losses {losses}; smallest change {moved}; launches per step '
+          f'{want}; saved {saved}; {card}', flush=True)
+    total = marks[-1][2]
+    return {k: total[k] - marks[0][2][k] for k in total}
 
 
 def main():
@@ -376,10 +746,13 @@ def main():
     phase_build(dev)
     kres = phase_kernels(dev)
     phase_wiring(dev)
+    phase_wiring_train(dev)
     plain = phase_main(dev, card)
     regional = phase_regional(dev, card)
+    train = phase_train(dev, card)
     kernels = [{'name': name, 'route': route, 'source': src,
-                'replaces': rep, 'launches': plain[name] + regional[name],
+                'replaces': rep,
+                'launches': plain[name] + regional[name] + train[name],
                 'max_abs_err': kres[name][0], 'ms': kres[name][1],
                 'plain_ms': kres[name][2]}
                for name, (route, src, rep) in KERNEL_META.items()]

@@ -50,9 +50,10 @@ def state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy a JAX tree into `module` (cast to its dtype and device). Raises
-    when the tree lacks any of the module's parameters; entries the module
-    does not hold (the VAE encoder, for the decode-only port) are ignored."""
+    """Copy a JAX tree into `module` (cast to its dtype and device): every
+    parameter the module holds, the VAE's encoder and quant_conv included.
+    Raises when the tree lacks any of them; entries the module does not hold
+    are ignored."""
     sd = state_dict_from_jax(tree)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))

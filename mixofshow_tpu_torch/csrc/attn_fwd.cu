@@ -1,10 +1,21 @@
 // attn_fwd: attention forward, softmax(q kᵀ · scale) v, over the natural
 // (B, S, H, D) layout, with key columns >= kv_len masked.
 //
-// Replaces the TPU kernel mixofshow_tpu/ops/fused_attention.py
-// `_packed_fwd_kernel` (launched by `_packed_flash`, wrapped by
-// `attention_packed`). The TPU kernel zero-padded every head from D to 128
-// lanes in HBM and held one head's whole K/V in VMEM; here the head width is
+// Replaces two TPU kernels:
+//   * mixofshow_tpu/ops/fused_attention.py `_packed_fwd_kernel` (K1,
+//     launched by `_packed_flash`, wrapped by `attention_packed`):
+//     entry point mos_attn_fwd, the FLASH = false instantiations;
+//   * mixofshow_tpu/ops/flash_attention.py `_fwd_kernel` (K4, the forward
+//     of the differentiable `flash_attention`): entry point mos_flash_fwd,
+//     the FLASH = true instantiations. They fold the softmax scale into q
+//     before the bf16 rounding, as the TPU kernel did, and also store the
+//     per-row log-sum-exp (B, H, Sq) in fp32 that the backward kernels
+//     (flash_bwd_dkv.cu, flash_bwd_dq.cu) recompute P from. The TPU
+//     kernel's 8-lane LSE replication was a VMEM tiling artifact and is
+//     not copied.
+//
+// The TPU K1 zero-padded every head from D to 128 lanes in HBM and held one
+// head's whole K/V in VMEM (K4 likewise held K/V resident); here the head width is
 // padded only inside shared-memory tiles (to the MMA's multiple of 16), and K
 // and V stream through in tiles with an online softmax (FlashAttention-2
 // style), so nothing padded ever reaches device memory.
@@ -35,12 +46,13 @@ struct AttnParams {
   int B, Sq, Sk, H, D, kv_len;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   float scale;
+  float* lse;  // (B, H, Sq) fp32, written by the FLASH instantiations only
 };
 
 constexpr float kNeg = -1e30f;  // masked logit, as the TPU kernel's NEG_INF
 
 // ------------------------------------------------------------------- bf16
-template <int DP, int NW, int BK, bool OSMEM>
+template <int DP, int NW, int BK, bool OSMEM, bool FLASH>
 __global__ void __launch_bounds__(NW * 32)
     attn_fwd_bf16_kernel(AttnParams p) {
   using bf16 = __nv_bfloat16;
@@ -70,8 +82,17 @@ __global__ void __launch_bounds__(NW * 32)
 
   for (int i = tid; i < BQ * DP; i += NTHREADS) {
     const int r = i / DP, c = i % DP;
-    Qs[r * QS + c] =
-        (q0 + r < p.Sq && c < D) ? qg[(long long)(q0 + r) * p.q_ss + c] : zero;
+    const bool ok = q0 + r < p.Sq && c < D;
+    if constexpr (FLASH) {
+      // scale folded into q, then rounded to bf16 (the TPU kernel's order)
+      Qs[r * QS + c] =
+          ok ? __float2bfloat16_rn(
+                   __bfloat162float(qg[(long long)(q0 + r) * p.q_ss + c]) *
+                   p.scale)
+             : zero;
+    } else {
+      Qs[r * QS + c] = ok ? qg[(long long)(q0 + r) * p.q_ss + c] : zero;
+    }
   }
 
   float o_reg[OSMEM ? 1 : NT_O][4];
@@ -88,7 +109,7 @@ __global__ void __launch_bounds__(NW * 32)
   // rows g and g+8 of this warp's 16; log2-domain running max, and this
   // thread's partial row sums (the 4 threads of a row are summed at the end)
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  const float sl2 = p.scale * 1.4426950408889634f;
+  const float sl2 = (FLASH ? 1.f : p.scale) * 1.4426950408889634f;
   const int n_tiles = (p.kv_len + BK - 1) / BK;
   const bf16* qr0 = Qs + (warp * 16 + g) * QS + 2 * t;
   const bf16* qr1 = qr0 + 8 * QS;
@@ -198,6 +219,12 @@ __global__ void __launch_bounds__(NW * 32)
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if constexpr (FLASH) {
+    // natural-log LSE from the log2-domain max and the row sum
+    float* lrow = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (t == 0 && r0 < p.Sq) lrow[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (t == 0 && r1 < p.Sq) lrow[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int j = 0; j < NT_O; ++j) {
     float c[4];
@@ -219,13 +246,13 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
-template <int DP, int NW, int BK, bool OSMEM>
+template <int DP, int NW, int BK, bool OSMEM, bool FLASH>
 int launch_bf16(const AttnParams& p, cudaStream_t stream) {
   constexpr int BQ = NW * 16;
   const size_t smem =
       (size_t)(BQ * (DP + 8) + BK * (DP + 8) + DP * (BK + 8)) * 2 +
       (OSMEM ? (size_t)BQ * DP * 4 : 0);
-  auto kern = attn_fwd_bf16_kernel<DP, NW, BK, OSMEM>;
+  auto kern = attn_fwd_bf16_kernel<DP, NW, BK, OSMEM, FLASH>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -239,6 +266,7 @@ constexpr int kF32Rows = 4;   // query rows (warps) per block
 constexpr int kF32Keys = 32;  // keys per tile: one per lane
 constexpr int kF32MaxCols = 16;  // D <= 512: 16 output columns per lane
 
+template <bool FLASH>
 __global__ void __launch_bounds__(kF32Rows * 32)
     attn_fwd_f32_kernel(AttnParams p) {
   extern __shared__ float sm[];
@@ -256,7 +284,8 @@ __global__ void __launch_bounds__(kF32Rows * 32)
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * D;
 
   for (int c = lane; c < D; c += 32)
-    Qs[warp * D + c] = row < p.Sq ? qg[(long long)row * p.q_ss + c] : 0.f;
+    Qs[warp * D + c] = row < p.Sq
+        ? qg[(long long)row * p.q_ss + c] * (FLASH ? p.scale : 1.f) : 0.f;
 
   float o[kF32MaxCols];
 #pragma unroll
@@ -277,7 +306,7 @@ __global__ void __launch_bounds__(kF32Rows * 32)
 
     float sc = 0.f;
     for (int c = 0; c < D; ++c) sc = fmaf(Qs[warp * D + c], Ks[lane * DS + c], sc);
-    sc = (k0 + lane < p.kv_len) ? sc * p.scale : kNeg;
+    sc = (k0 + lane < p.kv_len) ? (FLASH ? sc : sc * p.scale) : kNeg;
     float mx = sc;
 #pragma unroll
     for (int off = 16; off >= 1; off >>= 1)
@@ -308,19 +337,45 @@ __global__ void __launch_bounds__(kF32Rows * 32)
       const int c = lane + 32 * i;
       if (c < D) og[(long long)row * p.o_ss + c] = o[i] / l;
     }
+    if (FLASH && lane == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m + logf(l);
   }
 }
 
+template <bool FLASH>
 int launch_f32(const AttnParams& p, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * kF32Keys * (p.D + 1) + kF32Rows * p.D) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_f32_kernel<FLASH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
-  attn_fwd_f32_kernel<<<grid, kF32Rows * 32, smem, stream>>>(p);
+  attn_fwd_f32_kernel<FLASH><<<grid, kF32Rows * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// bf16 tiles by head width; the flash route stops at D = 160 (SD1.x's
+// widest head), K1 goes on to the VAE's single 512-wide head
+template <bool FLASH>
+int dispatch(const AttnParams& p, int dtype, cudaStream_t st) {
+  const int D = p.D;
+  if (dtype == MOS_F32) return launch_f32<FLASH>(p, st);
+  if (dtype != MOS_BF16) return -1;
+  if (D <= 16) return launch_bf16<16, 4, 64, false, FLASH>(p, st);
+  if (D <= 32) return launch_bf16<32, 4, 64, false, FLASH>(p, st);
+  if (D <= 48) return launch_bf16<48, 4, 64, false, FLASH>(p, st);
+  if (D <= 64) return launch_bf16<64, 4, 64, false, FLASH>(p, st);
+  if (D <= 80) return launch_bf16<80, 4, 64, false, FLASH>(p, st);
+  if (D <= 96) return launch_bf16<96, 4, 64, false, FLASH>(p, st);
+  if (D <= 128) return launch_bf16<128, 4, 64, false, FLASH>(p, st);
+  if (D <= 160) return launch_bf16<160, 4, 32, true, FLASH>(p, st);
+  if constexpr (FLASH) {
+    return -1;
+  } else {
+    if (D <= 256) return launch_bf16<256, 4, 32, true, false>(p, st);
+    return launch_bf16<512, 2, 32, true, false>(p, st);
+  }
 }
 
 }  // namespace
@@ -335,19 +390,21 @@ extern "C" int mos_attn_fwd(const void* q, const void* k, const void* v,
                             long long v_ss, long long o_sb, long long o_ss,
                             float scale, int dtype, void* stream) {
   AttnParams p{q, k, v, o, B, Sq, Sk, H, D, kv_len,
-               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, nullptr};
   if (D < 1 || D > 512 || kv_len < 1 || kv_len > Sk) return -1;
-  if (dtype == MOS_F32) return launch_f32(p, st);
-  if (dtype != MOS_BF16) return -1;
-  if (D <= 16) return launch_bf16<16, 4, 64, false>(p, st);
-  if (D <= 32) return launch_bf16<32, 4, 64, false>(p, st);
-  if (D <= 48) return launch_bf16<48, 4, 64, false>(p, st);
-  if (D <= 64) return launch_bf16<64, 4, 64, false>(p, st);
-  if (D <= 80) return launch_bf16<80, 4, 64, false>(p, st);
-  if (D <= 96) return launch_bf16<96, 4, 64, false>(p, st);
-  if (D <= 128) return launch_bf16<128, 4, 64, false>(p, st);
-  if (D <= 160) return launch_bf16<160, 4, 32, true>(p, st);
-  if (D <= 256) return launch_bf16<256, 4, 32, true>(p, st);
-  return launch_bf16<512, 2, 32, true>(p, st);
+  return dispatch<false>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K4: the same over all Sk keys, scale folded into q, and the LSE stored
+// to `lse`, contiguous (B, H, Sq) fp32. Returns -1 for D > 160.
+extern "C" int mos_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int Sq, int Sk,
+                             int H, int D, long long q_sb, long long q_ss,
+                             long long k_sb, long long k_ss, long long v_sb,
+                             long long v_ss, long long o_sb, long long o_ss,
+                             float scale, int dtype, void* stream) {
+  AttnParams p{q, k, v, o, B, Sq, Sk, H, D, Sk,
+               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, lse};
+  if (D < 1 || D > 160 || Sk < 1) return -1;
+  return dispatch<true>(p, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -3,8 +3,10 @@
 Conventions:
   * activations are NCHW; conv weights OIHW; Linear weights (out, in);
   * a LoRA leaf is {'down': (r, in), 'up': (out, r)} (the reference's
-    LoRALinearLayer layout), applied as y += alpha * up(down(x)); LoRA trees
-    are nested dicts threaded to the call sites, as in the JAX package;
+    LoRALinearLayer layout), applied as y += alpha * up(down(x)) in the
+    activation dtype (fp32 trainable leaves are cast on the way, as the JAX
+    package casts them); LoRA trees are nested dicts threaded to the call
+    sites, as in the JAX package;
   * norms compute their statistics in fp32 whatever the activation dtype,
     and apply a folded per-channel scale/bias in the activation dtype.
 """
@@ -17,10 +19,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mixofshow_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_supported)
+
 
 # ----------------------------------------------------------------- dense/conv
 def _lora_delta(x, lora, alpha):
-    return alpha * F.linear(F.linear(x, lora['down']), lora['up'])
+    return alpha * F.linear(F.linear(x, lora['down'].to(x.dtype)),
+                            lora['up'].to(x.dtype))
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, lora=None, alpha: float = 1.0):
@@ -37,8 +43,8 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, lora=None, alpha: float = 1.0):
     y = conv(x)
     if lora is not None:
         r = lora['down'].shape[0]
-        down = lora['down'].reshape(r, -1, 1, 1)
-        up = lora['up'].reshape(-1, r, 1, 1)
+        down = lora['down'].to(x.dtype).reshape(r, -1, 1, 1)
+        up = lora['up'].to(x.dtype).reshape(-1, r, 1, 1)
         y = y + alpha * F.conv2d(F.conv2d(x, down), up)
     return y
 
@@ -97,11 +103,20 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm):
 
 
 # ------------------------------------------------------------------ attention
-def sdpa(q, k, v, causal: bool = False):
-    """Dense multi-head attention, (B, S, H, D) layout, fp32 logits and
-    softmax; the probabilities are cast to v's dtype for the value product.
-    The short-context route (cross-attention's 77 keys, CLIP, self-attention
-    below 1024 keys), as JAX's dense `sdpa`."""
+def sdpa(q, k, v, causal: bool = False, return_probs: bool = False):
+    """Multi-head scaled dot-product attention, (B, S, H, D) layout.
+
+    Routing follows the JAX package's `sdpa`: large unmasked attention
+    (`flash_attention_supported`: >= 1024 keys, >= 128 queries, D <= 160)
+    goes to the differentiable flash attention (ops.flash_attention, K4-K6
+    on the card); probability capture, causal masks and short contexts
+    (cross-attention's 77 keys, CLIP, self-attention below 1024 keys) take
+    the dense path: fp32 logits and softmax, the probabilities cast to v's
+    dtype for the value product. With `return_probs` it returns (out, fp32
+    probabilities (B, H, Sq, Sk))."""
+    if not causal and not return_probs and flash_attention_supported(
+            q.shape[1], k.shape[1], q.shape[-1]):
+        return flash_attention(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
     if causal:
@@ -110,7 +125,8 @@ def sdpa(q, k, v, causal: bool = False):
                           device=q.device).tril()
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum('bhqk,bkhd->bqhd', probs.to(v.dtype), v)
+    out = torch.einsum('bhqk,bkhd->bqhd', probs.to(v.dtype), v)
+    return (out, probs) if return_probs else out
 
 
 # ------------------------------------------------------------------ timesteps

@@ -7,10 +7,85 @@ forwards thread the matching subtree to each call site with `maybe`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+
+def init_lora_leaf(rng: np.random.Generator, in_dim: int, out_dim: int,
+                   rank: int = 4, device='cpu', dtype=torch.float32):
+    """Kaiming-uniform down (bound 1/√in, the reference's a=√5 init), zero
+    up. The down draw is the JAX package's (in, r) draw from the same numpy
+    generator, transposed to (r, in)."""
+    bound = 1.0 / math.sqrt(in_dim)
+    down = rng.uniform(-bound, bound, (in_dim, rank)).astype(np.float32).T
+    return {'down': torch.as_tensor(np.ascontiguousarray(down), dtype=dtype,
+                                    device=device),
+            'up': torch.zeros((out_dim, rank), dtype=dtype, device=device)}
+
+
+def _is_linear_leaf(mod: nn.Module) -> bool:
+    return isinstance(mod, nn.Linear) or (
+        isinstance(mod, nn.Conv2d) and mod.kernel_size == (1, 1))
+
+
+def _jax_order_modules(module: nn.Module, prefix: str = ''):
+    """(path, module) depth first, children in the JAX parameter tree's key
+    order: registration order, unless a module lists its children's JAX
+    order in `JAX_CHILD_ORDER`."""
+    children = list(module.named_children())
+    order = getattr(module, 'JAX_CHILD_ORDER', None)
+    if order:
+        children.sort(key=lambda nc: order.index(nc[0]))
+    for name, child in children:
+        path = f'{prefix}/{name}' if prefix else name
+        yield path, child
+        yield from _jax_order_modules(child, path)
+
+
+def init_lora_tree(rng: np.random.Generator, module: nn.Module,
+                   path_filter: Callable[[str], bool], rank: int = 4,
+                   device='cpu', dtype=torch.float32) -> Dict:
+    """A LoRA leaf for every Linear or 1x1 Conv2d whose '/'-joined module
+    path (e.g. 'down_blocks/0/attentions/0/attn1/to_q') passes
+    `path_filter`. Leaves are drawn in the JAX parameter tree's order, so
+    the same numpy generator state gives the same leaves as the JAX
+    package's `init_lora_tree`."""
+    tree: Dict = {}
+    for path, mod in _jax_order_modules(module):
+        if not _is_linear_leaf(mod) or not path_filter(path):
+            continue
+        node = tree
+        parts = path.split('/')
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = init_lora_leaf(
+            rng, mod.weight.shape[1], mod.weight.shape[0], rank, device,
+            dtype)
+    return tree
+
+
+def flatten_lora(tree, prefix: str = '') -> Dict[str, Dict]:
+    """{'/'-joined path: {'down', 'up'}} for I/O."""
+    out = {}
+
+    def walk(node, path):
+        if is_lora_leaf(node):
+            out[path] = node
+            return
+        if isinstance(node, dict):
+            for name, child in node.items():
+                walk(child, f'{path}/{name}' if path else str(name))
+
+    walk(tree, prefix)
+    return out
+
+
+def num_lora_leaves(tree) -> int:
+    return len(flatten_lora(tree))
 
 
 def is_lora_leaf(node) -> bool:

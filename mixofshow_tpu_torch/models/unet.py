@@ -1,7 +1,7 @@
 """SD1.x UNet2DConditionModel forward as a torch module, NCHW.
 
-Port of mixofshow_tpu/models/unet.py for sampling (no probability or Gram
-capture yet). ED-LoRA specifics:
+Port of mixofshow_tpu/models/unet.py (Gram capture for fusion is later
+work). ED-LoRA specifics:
   * every cross-attention layer has a static index in down→mid→up order (16
     for SD1.5); a 4-D (B, 16, 77, C) context gives each layer its own slice;
   * LoRA is a nested dict mirroring this module tree, threaded to every
@@ -10,11 +10,19 @@ capture yet). ED-LoRA specifics:
     call (they are constant across the denoise steps);
   * regional sampling hands in T2I-Adapter `adapter_features` (added to the
     down blocks as diffusers 0.19.x does) and a `cross_attn_override` that
-    replaces every cross-attention.
+    replaces every cross-attention;
+  * training asks for the cross-attention probabilities
+    (`return_cross_probs`, optionally only the concept columns
+    `prob_columns`) for the attention regularizer, and may recompute each
+    transformer in the backward (`remat`).
 
-Attention routing follows the JAX package: self-attention with >= 1024 keys
-runs the K1 processor (ops.fused_attention.attention_packed, LoRA folded into
-the effective weights); shorter and cross-attention run the dense `sdpa`.
+Attention routing follows the JAX package's `fuse_attention`:
+  * 'packed' (the sampling pipelines): self-attention with >= 1024 keys runs
+    the forward-only K1 processor (ops.fused_attention.attention_packed,
+    LoRA folded into the effective weights);
+  * False (training, the default): every attention goes through
+    `layers.sdpa`, whose large self-attentions take the differentiable
+    flash attention (K4-K6) and the rest the dense path.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mixofshow_tpu_torch.models.layers import (conv2d, dense, group_norm,
@@ -108,12 +117,18 @@ class Attention(nn.Module):
 
 
 def mh_attention(p: Attention, x, context, heads: int, lora=None,
-                 alpha: float = 1.0, kv=None):
+                 alpha: float = 1.0, kv=None, fuse=False,
+                 return_probs: bool = False):
     """diffusers `Attention` equivalent; (B, S, C) in and out. `kv` supplies
-    precomputed (B, Sk, H, D) key/value projections."""
+    precomputed (B, Sk, H, D) key/value projections; `fuse='packed'` routes
+    >= 1024 keys to K1; `return_probs` returns (out, fp32 probabilities)."""
+    if fuse not in (False, 'packed'):
+        raise ValueError(f"fuse_attention must be False or 'packed', got "
+                         f'{fuse!r}')
     b, s, c = x.shape
     d = c // heads
-    if kv is None and context.shape[1] >= PACKED_MIN_KEYS:
+    if fuse == 'packed' and kv is None and not return_probs \
+            and context.shape[1] >= PACKED_MIN_KEYS:
         def eff(name):
             w = getattr(p, name).weight
             lw = maybe(lora, name)
@@ -130,6 +145,10 @@ def mh_attention(p: Attention, x, context, heads: int, lora=None,
         k, v = k.view(b, -1, heads, d), v.view(b, -1, heads, d)
     else:
         k, v = kv[0].to(x.dtype), kv[1].to(x.dtype)
+    if return_probs:
+        out, probs = sdpa(q, k, v, return_probs=True)
+        return dense(out.reshape(b, s, c), p.to_out, maybe(lora, 'to_out'),
+                     alpha), probs
     out = sdpa(q, k, v).reshape(b, s, c)
     return dense(out, p.to_out, maybe(lora, 'to_out'), alpha)
 
@@ -163,29 +182,45 @@ class Transformer(nn.Module):
 
     def forward(self, x, context, layer_idx: int, heads: int, lora=None,
                 alpha=1.0, cross_kv=None, place: str = 'down',
-                cross_attn_override=None):
-        """`cross_attn_override(attn2, x, ctx, layer_idx, place, (h, w),
-        lora, alpha)` replaces the cross-attention when given."""
+                cross_attn_override=None, fuse_attention=False,
+                return_probs: bool = False, prob_columns=None):
+        """Returns (out, cross-attention probabilities or None).
+        `cross_attn_override(attn2, x, ctx, layer_idx, place, (h, w), lora,
+        alpha)` replaces the cross-attention when given; `return_probs`
+        captures the cross-attention's fp32 probabilities (B, heads, Q, 77),
+        gathered to the (B, K) key columns `prob_columns` when given, so
+        full maps never stay alive for the backward."""
         b, c, h, w = x.shape
         hid = conv2d(group_norm(x, self.norm), self.proj_in,
                      maybe(lora, 'proj_in'), alpha)
         hid = hid.permute(0, 2, 3, 1).reshape(b, h * w, c)
         a = layer_norm(hid, self.ln1)
         hid = hid + mh_attention(self.attn1, a, a, heads,
-                                 maybe(lora, 'attn1'), alpha)
+                                 maybe(lora, 'attn1'), alpha,
+                                 fuse=fuse_attention)
         ctx = context[:, layer_idx] if context.dim() == 4 else context
         a = layer_norm(hid, self.ln2)
+        probs = None
         if cross_attn_override is not None:
-            hid = hid + cross_attn_override(self.attn2, a, ctx, layer_idx,
-                                            place, (h, w),
-                                            maybe(lora, 'attn2'), alpha)
+            ca = cross_attn_override(self.attn2, a, ctx, layer_idx, place,
+                                     (h, w), maybe(lora, 'attn2'), alpha)
+        elif return_probs:
+            ca, probs = mh_attention(self.attn2, a, ctx, heads,
+                                     maybe(lora, 'attn2'), alpha,
+                                     kv=cross_kv, return_probs=True)
+            if prob_columns is not None:
+                cols = prob_columns[:, None, None, :].expand(
+                    *probs.shape[:3], prob_columns.shape[-1])
+                probs = probs.gather(-1, cols)
         else:
-            hid = hid + mh_attention(self.attn2, a, ctx, heads,
-                                     maybe(lora, 'attn2'), alpha, kv=cross_kv)
+            ca = mh_attention(self.attn2, a, ctx, heads, maybe(lora, 'attn2'),
+                              alpha, kv=cross_kv, fuse=fuse_attention)
+        hid = hid + ca
         hid = hid + self.ff(layer_norm(hid, self.ln3), maybe(lora, 'ff'),
                             alpha)
         hid = hid.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
-        return conv2d(hid, self.proj_out, maybe(lora, 'proj_out'), alpha) + x
+        out = conv2d(hid, self.proj_out, maybe(lora, 'proj_out'), alpha) + x
+        return out, probs
 
 
 class _Block(nn.Module):
@@ -205,6 +240,11 @@ class _Mid(nn.Module):
 
 
 class UNet(nn.Module):
+    # the JAX parameter tree's key order (init_unet inserts up_blocks before
+    # mid); init_lora_tree draws in it
+    JAX_CHILD_ORDER = ('conv_in', 'time_embedding', 'down_blocks',
+                       'up_blocks', 'mid', 'norm_out', 'conv_out')
+
     def __init__(self, cfg: UNetConfig, device, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -280,12 +320,21 @@ class UNet(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, lora=None,
                 lora_alpha: float = 1.0, cross_kv=None,
-                adapter_features=None, cross_attn_override=None):
+                adapter_features=None, cross_attn_override=None,
+                fuse_attention=False, return_cross_probs: bool = False,
+                prob_columns=None, remat: bool = False):
         """Predict noise. sample (B, 4, h, w) NCHW; timesteps (B,) or a
         scalar; encoder_hidden_states (B, 77, C) or layerwise (B, 16, 77, C);
         `cross_kv` from `cross_attention_kv`; `adapter_features` NCHW maps,
         one per down block (T2IAdapter); `cross_attn_override` replaces
-        every cross-attention (see Transformer.forward)."""
+        every cross-attention (see Transformer.forward); `fuse_attention`
+        False or 'packed' (see the module docstring); `remat` recomputes
+        each transformer in the backward (torch.utils.checkpoint).
+
+        Returns the prediction, or with `return_cross_probs` (prediction,
+        aux) where aux['cross_probs'] lists (place, layer_idx, probs (B,
+        heads, Q, 77 or K)) in layer order; `prob_columns` (B, K) keeps only
+        those key columns."""
         cfg = self.cfg
         dt = sample.dtype
         if timesteps.dim() == 0:
@@ -298,11 +347,21 @@ class UNet(nn.Module):
         heads = cfg.attention_heads
         idx = 0
 
+        probs_out = []
+
         def tfm(mod, x, blora, place):
             nonlocal idx
             kv = None if cross_kv is None else cross_kv[idx]
-            out = mod(x, ehs, idx, heads, blora, lora_alpha, kv, place,
-                      cross_attn_override)
+            args = (x, ehs, idx, heads, blora, lora_alpha, kv, place,
+                    cross_attn_override, fuse_attention, return_cross_probs,
+                    prob_columns)
+            if remat:
+                out, probs = torch.utils.checkpoint.checkpoint(
+                    mod, *args, use_reentrant=False)
+            else:
+                out, probs = mod(*args)
+            if probs is not None:
+                probs_out.append((place, idx, probs))
             idx += 1
             return out
 
@@ -344,4 +403,7 @@ class UNet(nn.Module):
                            blk.upsample)
 
         x = group_norm(x, self.norm_out, act='silu')
-        return conv2d(x, self.conv_out)
+        out = conv2d(x, self.conv_out)
+        if return_cross_probs:
+            return out, {'cross_probs': probs_out}
+        return out

@@ -1,13 +1,22 @@
-"""AutoencoderKL (SD1.x VAE) decoder as a torch module, NCHW.
+"""AutoencoderKL (SD1.x VAE) as a torch module, NCHW.
 
-Port of the decode half of mixofshow_tpu/models/vae.py (encode arrives with
-training). Decoder: post_quant_conv, conv_in, mid block (resnet, one
-single-head attention, resnet), four up stages of three resnets with
-nearest 2x upsampling, norm_out + SiLU, conv_out.
+Port of mixofshow_tpu/models/vae.py.
+  * Encoder (training): conv_in, four down stages of two resnets with
+    diffusers' asymmetric (0, 1, 0, 1) pad before each stride-2 conv, mid
+    block (resnet, one single-head attention, resnet), norm_out + SiLU,
+    conv_out, then quant_conv -> (mean, logvar clipped to [-30, 20]).
+  * Decoder (sampling): post_quant_conv, conv_in, mid block, four up stages
+    of three resnets with nearest 2x upsampling, norm_out + SiLU, conv_out.
 
 Routing follows the JAX package: every VAE GroupNorm takes its statistics
-from the K2 kernel (ops.gn_stats.spatial_sums) and the mid-block attention
+from the K2 kernel (ops.gn_stats.spatial_sums) and each mid-block attention
 runs the whole-processor K3 kernel (ops.fused_attention.attention_block).
+Both kernels are forward-only; the trainer encodes under no_grad, as the JAX
+trainer stops the gradient at the latents.
+
+The encoder and quant_conv are registered after the decoder and
+post_quant_conv, so a seeded random init draws the decoder's weights exactly
+as a decode-only module did.
 """
 from __future__ import annotations
 
@@ -118,8 +127,30 @@ class Decoder(nn.Module):
         self.conv_out = nn.Conv2d(cin, cfg.in_channels, 3, padding=1, **kw)
 
 
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        ch, g = cfg.block_out_channels, cfg.norm_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1, **kw)
+        self.down = nn.ModuleList()
+        cin = ch[0]
+        for i, cout in enumerate(ch):
+            stage = _Stage()
+            for _ in range(cfg.layers_per_block):
+                stage.resnets.append(Resnet(cin, cout, g, **kw))
+                cin = cout
+            if i < len(ch) - 1:
+                # diffusers pads (0, 1, 0, 1) itself: no conv padding
+                stage.downsample = nn.Conv2d(cin, cin, 3, stride=2, **kw)
+            self.down.append(stage)
+        self.mid = _Mid(cin, g, **kw)
+        self.norm_out = nn.GroupNorm(g, cin, eps=EPS, **kw)
+        self.conv_out = nn.Conv2d(cin, 2 * cfg.latent_channels, 3, padding=1,
+                                  **kw)
+
+
 class AutoencoderKL(nn.Module):
-    """Decode-only SD1.x VAE."""
+    """SD1.x VAE: `encode` for training, `decode` for sampling."""
 
     def __init__(self, cfg: VAEConfig, device, dtype=torch.float32):
         super().__init__()
@@ -128,6 +159,25 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(cfg, **kw)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
                                          cfg.latent_channels, 1, **kw)
+        self.encoder = Encoder(cfg, **kw)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
+                                    2 * cfg.latent_channels, 1, **kw)
+
+    def encode(self, images):
+        """images (B, 3, H, W) in [-1, 1] -> (mean, logvar), each (B, 4,
+        H/8, W/8); logvar clipped to [-30, 20]. Callers multiply the sample
+        by cfg.scaling_factor."""
+        e = self.encoder
+        x = conv2d(images, e.conv_in)
+        for stage in e.down:
+            for r in stage.resnets:
+                x = r(x)
+            if hasattr(stage, 'downsample'):
+                x = conv2d(F.pad(x, (0, 1, 0, 1)), stage.downsample)
+        x = e.mid.resnet2(e.mid.attn(e.mid.resnet1(x)))
+        x = conv2d(_gn(x, e.norm_out, 'silu'), e.conv_out)
+        mean, logvar = conv2d(x, self.quant_conv).chunk(2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, latents):
         """latents (B, 4, h, w) — the caller divides by scaling_factor
@@ -142,3 +192,9 @@ class AutoencoderKL(nn.Module):
                 x = conv2d(F.interpolate(x, scale_factor=2, mode='nearest'),
                            stage.upsample)
         return conv2d(_gn(x, d.norm_out, 'silu'), d.conv_out)
+
+
+def sample_latents(mean, logvar, eps):
+    """The reparameterised sample mean + exp(logvar / 2) · eps; `eps` is
+    standard normal noise of mean's shape, drawn by the caller."""
+    return mean + torch.exp(0.5 * logvar) * eps

@@ -40,6 +40,12 @@ _GEMM_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 3 + [_c.c_longlong] * 2
               + [_c.c_int, _c.c_void_p])
 _REGION_ARGS = ([_c.c_void_p] * 6 + [_c.c_int] * 7
                 + [_c.POINTER(_c.c_int), _c.c_float, _c.c_int, _c.c_void_p])
+_FLASH_FWD_ARGS = ([_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 8
+                   + [_c.c_float, _c.c_int, _c.c_void_p])
+_FLASH_DKV_ARGS = ([_c.c_void_p] * 8 + [_c.c_int] * 5
+                   + [_c.c_float, _c.c_int, _c.c_void_p])
+_FLASH_DQ_ARGS = ([_c.c_void_p] * 7 + [_c.c_int] * 5
+                  + [_c.c_float, _c.c_int, _c.c_void_p])
 _CODES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 
 
@@ -112,6 +118,12 @@ def cuda_lib() -> ctypes.CDLL:
     lib.mos_gemm_bias.restype = ctypes.c_int
     lib.mos_region_attn.argtypes = _REGION_ARGS
     lib.mos_region_attn.restype = ctypes.c_int
+    lib.mos_flash_fwd.argtypes = _FLASH_FWD_ARGS
+    lib.mos_flash_fwd.restype = ctypes.c_int
+    lib.mos_flash_bwd_dkv.argtypes = _FLASH_DKV_ARGS
+    lib.mos_flash_bwd_dkv.restype = ctypes.c_int
+    lib.mos_flash_bwd_dq.argtypes = _FLASH_DQ_ARGS
+    lib.mos_flash_bwd_dq.restype = ctypes.c_int
     return lib
 
 
@@ -137,6 +149,20 @@ def dtype_code(*ts) -> int:
 def stream(t) -> int:
     """The current CUDA stream of t's device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def forward_only(what: str, *ts) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel
+    has no backward, so its output would carry no gradient and the loss
+    would silently lose that path. Checked on every device, so CPU runs
+    see the same error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f'{what} is forward-only (it has no backward kernel) but was '
+            'called with grad mode on and an input that requires grad; '
+            'wrap the call in torch.no_grad() or take a differentiable '
+            'route (UNet fuse_attention=False)')
 
 
 def check(rc: int, what: str) -> None:

@@ -16,6 +16,9 @@ Port of mixofshow_tpu/ops/fused_attention.py:
 Weights use the PyTorch layout, (out, in). Each wrapper runs its plain
 version for CPU tensors and launches its kernel for CUDA tensors; there is
 no fallback between the two. `<wrapper>.launches` counts kernel launches.
+Both kernels are forward-only: with grad mode on, an input that requires
+grad raises (on either device) rather than return an output without a
+gradient; training takes ops.flash_attention.
 """
 from __future__ import annotations
 
@@ -120,6 +123,7 @@ def attn_fwd(q, k, v, kv_len: Optional[int] = None):
     K1: CUDA tensors launch csrc/attn_fwd.cu (bf16 on tensor cores with an
     fp32 softmax, or fp32 throughout); CPU tensors run `attn_fwd_plain`."""
     kv_len = k.shape[1] if kv_len is None else kv_len
+    _build.forward_only('attn_fwd', q, k, v)
     if _build.device_type(q, k, v) == 'cpu':
         return attn_fwd_plain(q, k, v, kv_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -152,6 +156,8 @@ def attention_block(x, ctx, wq, wk, wv, wo, bias, heads: int,
     CUDA tensors: the q, k and v projections (csrc/gemm_bias.cu), the
     attention core (csrc/attn_fwd.cu) and the out-projection, all
     hand-written; CPU tensors run `attention_block_plain`."""
+    _build.forward_only('attention_block', x, ctx, wq, wk, wv, wo, bias,
+                        bias_q, bias_k, bias_v)
     if _build.device_type(x, ctx, wq, wk, wv, wo) == 'cpu':
         return attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads,
                                      bias_q, bias_k, bias_v)

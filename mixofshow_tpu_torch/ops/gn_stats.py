@@ -13,12 +13,14 @@ H×W or C is contiguous.
 
 The port keeps activations NCHW; the kernel reads the tensor's real strides
 (contiguous or channels_last) and raises when H and W cannot be flattened.
-Inference only in this slice: the backward (elementwise) arrives with
-training.
+Forward-only: with grad mode on, an input that requires grad raises (the
+training path runs the VAE encode, its one caller, under no_grad).
 """
 from __future__ import annotations
 
 import torch
+
+from mixofshow_tpu_torch.ops import _build
 
 
 def spatial_sums_plain(x: torch.Tensor):
@@ -33,6 +35,7 @@ def spatial_sums(x: torch.Tensor):
     tensors run `spatial_sums_plain`."""
     if x.dim() != 4:
         raise ValueError(f'spatial_sums takes (B, C, H, W), got {x.shape}')
+    _build.forward_only('spatial_sums', x)
     if x.device.type == 'cpu':
         return spatial_sums_plain(x)
     if x.device.type != 'cuda':

@@ -88,6 +88,7 @@ def region_attention(q, g_k, g_v, r_k, r_v, boxes_px, hw: Tuple[int, int]):
     (contiguous, all fp32 or all bf16) launch csrc/region_attn.cu; CPU
     tensors run `region_attention_plain`."""
     boxes = np.asarray(boxes_px, np.int32).reshape(-1, 4)
+    _build.forward_only('region_attention', q, g_k, g_v, r_k, r_v)
     if _build.device_type(q, g_k, g_v, r_k, r_v) == 'cpu':
         return region_attention_plain(q, g_k, g_v, r_k, r_v, boxes, hw)
     b, n, heads, d = q.shape

@@ -41,15 +41,16 @@ def init_concepts(tokenizer: CLIPTokenizer,
                   new_concept_token: str,
                   initializer_token: Optional[str],
                   base_embedding,
-                  rng: Optional[np.random.Generator] = None
-                  ) -> Tuple[Dict, np.ndarray]:
+                  rng: Optional[np.random.Generator] = None,
+                  enable_edlora: bool = True) -> Tuple[Dict, np.ndarray]:
     """Register concept tokens and build the initial concept-embedding table.
 
     Concepts split on '+', each getting 16 tokens `<new{idx*16+layer}>`, one
-    per cross-attention layer; rows start from an existing token's embedding
-    or from `<rand-σ>` gaussian noise drawn from `rng` (numpy, as in the
-    reference, so both packages build the same table). `base_embedding` is the
-    (vocab, C) token table (numpy or a tensor).
+    per cross-attention layer (1 when not `enable_edlora`); rows start from
+    an existing token's embedding or from `<rand-σ>` gaussian noise drawn
+    from `rng` (numpy, as in the reference, so both packages build the same
+    table). `base_embedding` is the (vocab, C) token table (numpy or a
+    tensor).
 
     Returns (new_concept_cfg, concept_embedding (total_new_tokens, C) fp32);
     `concept_embedding[token_id - vocab_size]` is the row for `token_id`.
@@ -66,7 +67,7 @@ def init_concepts(tokenizer: CLIPTokenizer,
     dim = base_embedding.shape[1]
     new_concept_cfg: Dict = {}
     rows: List[np.ndarray] = []
-    n_layers = NUM_CROSS_ATTENTION_LAYERS
+    n_layers = NUM_CROSS_ATTENTION_LAYERS if enable_edlora else 1
     for idx, (concept_name, init_token) in enumerate(zip(concepts,
                                                          init_tokens)):
         names = [f'<new{idx * n_layers + layer}>' for layer in range(n_layers)]
@@ -96,3 +97,11 @@ def init_concepts(tokenizer: CLIPTokenizer,
     table = np.stack(rows).astype(np.float32) if rows else \
         np.zeros((0, dim), np.float32)
     return new_concept_cfg, table
+
+
+def all_concept_token_ids(new_concept_cfg: Dict) -> List[int]:
+    """Flattened token ids of every concept, in concept order."""
+    ids: List[int] = []
+    for cfg in new_concept_cfg.values():
+        ids.extend(cfg['concept_token_ids'])
+    return ids

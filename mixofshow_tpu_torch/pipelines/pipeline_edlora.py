@@ -135,7 +135,7 @@ class EDLoRAPipeline:
             t = int(coeffs.timestep[i])
             ts = torch.full((latent_in.shape[0],), t, device=self.device)
             eps = self.unet(latent_in.to(self.dtype), ts, embeds, lora,
-                            alpha, **unet_kw).float()
+                            alpha, fuse_attention='packed', **unet_kw).float()
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)

@@ -7,8 +7,10 @@ elsewhere. This file imports no jax, so it runs on a machine without it:
         tests/test_torch_port_cuda.py
 
 Tolerances: bf16 kernels against the fp32 plain version on the same bf16
-inputs 3e-2 (P and the output round to bf16); fp32 kernels 1e-5; fp32 sums
-relative 1e-4 of the sum of magnitudes.
+inputs 3e-2 (P and the output round to bf16), the bf16 flash kernels 2e-2
+of the twin's largest entry (see FLASH_BF16_REL); fp32 kernels 1e-5 (the
+flash kernels 1e-4: their sums run over up to 2048 keys in another order);
+fp32 sums relative 1e-4 of the sum of magnitudes.
 """
 import copy
 
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from mixofshow_tpu_torch import ops, zoo
+from mixofshow_tpu_torch.models.lora import flatten_lora, init_lora_tree
+from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
 from mixofshow_tpu_torch.ops import region_attention as ra
@@ -143,10 +147,12 @@ def test_tiny_pipeline_card_matches_cpu(dev):
     ops.reset_launch_counts()
     img = gpu(**args)
     counts = ops.launch_counts()
-    # the plain path runs K1, K2 and K3; K7 belongs to the regional path
+    # the plain path runs K1, K2 and K3; K7 belongs to the regional path,
+    # K4-K6 to training
     assert all(counts[k] > 0 for k in ('attn_fwd', 'gn_spatial_sums',
                                        'attn_block'))
-    assert counts['region_attn'] == 0
+    assert all(counts[k] == 0 for k in ('region_attn', 'flash_fwd',
+                                        'flash_bwd_dkv', 'flash_bwd_dq'))
     np.testing.assert_allclose(img, cpu(**args), atol=2e-3)
 
 
@@ -231,5 +237,162 @@ def test_tiny_regional_pipeline_card_matches_cpu(dev):
                 num_inference_steps=2, latents=lat, output_type='np')
     ops.reset_launch_counts()
     img = gpu(layout, **args)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    # the four sampling kernels launch; the training path's flash kernels
+    # do not
+    assert all(counts[k] > 0 for k in ('attn_fwd', 'gn_spatial_sums',
+                                       'attn_block', 'region_attn'))
+    assert all(counts[k] == 0 for k in ('flash_fwd', 'flash_bwd_dkv',
+                                        'flash_bwd_dq'))
     np.testing.assert_allclose(img, cpu(layout, **args), atol=2e-3)
+
+
+# The flash kernels in bf16: the largest error relative to the twin's
+# largest entry (one bf16 ulp there is 2^-8 to 2^-7 of it; a twin that keeps
+# P and dS in fp32 stays within 6.2e-3 of it at FLASH_CASES, a backward that
+# drops Dvec from dS is 3.5e-2 or more off), and the fp32 LSE absolute. In
+# fp32 all absolute: sums over up to 2048 keys in another order.
+FLASH_BF16_REL = 2e-2
+FLASH_LSE_TOL = 1e-3
+FLASH_F32_TOL = 1e-4
+FLASH_CASES = [(1, 256, 1024, 2, 16), (2, 130, 1100, 2, 40),
+               (1, 1024, 1024, 8, 80), (1, 200, 1300, 2, 160),
+               (1, 128, 2048, 1, 96), (1, 300, 1024, 3, 64)]
+
+
+def flash_err(got, want):
+    """Largest error of a flash output against its twin: relative to the
+    twin's largest entry in bf16, absolute in fp32."""
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.bfloat16:
+        return err / want.float().abs().max().item()
+    return err
+
+
+def flash_bound(dtype):
+    return FLASH_BF16_REL if dtype == torch.bfloat16 else FLASH_F32_TOL
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,sq,sk,h,d', FLASH_CASES)
+def test_flash_kernels_match_twins(dev, dtype, b, sq, sk, h, d):
+    """K4 (o and lse), K5 (dk, dv) and K6 (dq) against the twins on the same
+    inputs, ragged Sq/Sk and every head-width tile included; the bound
+    rejects a planted fault, the twin's backward without Dvec."""
+    q = _randn(dev, b, sq, h, d, dtype=dtype, seed=1)
+    k = _randn(dev, b, sk, h, d, dtype=dtype, seed=2)
+    v = _randn(dev, b, sk, h, d, dtype=dtype, seed=3)
+    do = _randn(dev, b, sq, h, d, dtype=dtype, seed=4)
+    before = ops.launch_counts()
+    o, lse = fl.flash_fwd(q, k, v)
+    dvec = fl.flash_dvec(do, o)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, dvec)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in
+               ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq'))
+    ro, rlse = fl.flash_fwd_plain(q, k, v)
+    bound = flash_bound(dtype)
+    assert o.dtype == dtype and lse.shape == (b, h, sq)
+    assert flash_err(o, ro) <= bound
+    torch.testing.assert_close(
+        lse, rlse, rtol=0,
+        atol=FLASH_LSE_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL)
+    want = fl.flash_bwd_plain(q, k, v, do, lse, dvec)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype
+        assert flash_err(got, ref) <= bound
+    bad = fl.flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(dvec))
+    assert flash_err(bad[0], want[0]) > bound
+    assert flash_err(bad[1], want[1]) > bound
+
+
+def test_flash_fp32_backward_matches_autograd_of_plain(dev):
+    q, k, v, do = (_randn(dev, 2, n, 2, 40, dtype=torch.float32, seed=s)
+                   for n, s in ((500, 1), (1030, 2), (1030, 3), (500, 4)))
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    fl.flash_attention(*ts).backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.attn_fwd_plain(*ref).backward(do)
+    for a, b_ in zip(ts, ref):
+        torch.testing.assert_close(a.grad, b_.grad, atol=1e-4, rtol=0)
+
+
+def test_flash_strided_grad_and_bitwise_reruns(dev):
+    """A dO that reaches the Function transposed (non-contiguous) is taken;
+    two backward passes give bit-identical gradients (no atomics)."""
+    q, k, v = (_randn(dev, 2, 1024, 4, 40, dtype=torch.bfloat16, seed=s)
+               for s in (1, 2, 3))
+    w = _randn(dev, 2, 4, 1024, 40, dtype=torch.bfloat16, seed=4)
+    grads = []
+    for _ in range(2):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fl.flash_attention(*ts).transpose(1, 2) * w).float().sum() \
+            .backward()
+        grads.append([t.grad for t in ts])
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+    o, lse = fl.flash_fwd(q, k, v)
+    do = w.transpose(1, 2).contiguous()
+    want = fl.flash_bwd_plain(q, k, v, do, lse, fl.flash_dvec(do, o))
+    for a, b_ in zip(grads[0], want):
+        assert flash_err(a, b_) <= FLASH_BF16_REL
+
+
+def test_flash_raises_on_what_it_cannot_take(dev):
+    t = torch.zeros(1, 128, 1, 168, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='head dim'):
+        fl.flash_fwd(t, t, t)
+    h = torch.zeros(1, 128, 2, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fl.flash_fwd(h, h, h)
+    q = torch.zeros(1, 128, 2, 16, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 130, 2, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='shape mismatch'):
+        fl.flash_fwd(q, k, k)
+    lse = torch.zeros(1, 2, 128, device=dev)
+    with pytest.raises(ValueError, match='contiguous'):
+        fl.flash_bwd_dq(q, q, q, q.transpose(1, 2).contiguous()
+                        .transpose(1, 2), lse, lse)
+
+
+def test_unet_gradient_reaches_every_attn1_lora_on_the_card(dev):
+    """fp32 tiny UNet at 32x32 latents on the card (the res-32
+    self-attentions take K4-K6, none takes K1): every attn1 LoRA leaf gets a
+    finite non-zero gradient, equal to the CPU's within 1e-3 of the largest
+    entry."""
+    exact_fp32()
+    b = zoo.load_models('random:tiny', 'cpu', seed=0)
+    unet_cpu = b.unet.requires_grad_(False)
+    unet_gpu = copy.deepcopy(unet_cpu).to(dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 4, 32, 32)).astype(np.float32))
+    ehs = torch.from_numpy(rng.normal(size=(2, 77, 64)).astype(np.float32))
+    grads = []
+    for unet, d in ((unet_gpu, dev), (unet_cpu, 'cpu')):
+        lora = init_lora_tree(np.random.default_rng(1), unet,
+                              lambda p: '/attn1/' in p or '/attn2/' in p,
+                              rank=4, device=d)
+        for leaf in flatten_lora(lora).values():
+            leaf['up'].fill_(0.01)
+            for t in leaf.values():
+                t.requires_grad_()
+        ops.reset_launch_counts()
+        out = unet(x.to(d), torch.tensor([300, 700], device=d), ehs.to(d),
+                   lora, 1.0)
+        out.square().mean().backward()
+        if d == dev:
+            counts = ops.launch_counts()
+        grads.append({p: [leaf[n].grad.cpu() for n in ('down', 'up')]
+                      for p, leaf in flatten_lora(lora).items()})
+    assert counts['flash_fwd'] == counts['flash_bwd_dkv'] == \
+        counts['flash_bwd_dq'] == 5 and counts['attn_fwd'] == 0
+    attn1 = [p for p in grads[0] if '/attn1/' in p]
+    assert len(attn1) == 64
+    scale = max(g.abs().max().item() for gs_ in grads[1].values()
+                for g in gs_)
+    for p in attn1:
+        for g, c in zip(grads[0][p], grads[1][p]):
+            assert torch.isfinite(g).all() and g.abs().max() > 0, p
+            assert (g - c).abs().max().item() <= 1e-3 * scale, p

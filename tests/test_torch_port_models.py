@@ -54,9 +54,9 @@ def test_clip_encode_matches_jax(bundle):
 @pytest.mark.parametrize('hw', [8, 32])
 def test_unet_eval_matches_jax(bundle, hw):
     """One tiny UNet eval with LoRA on every attention linear and hoisted
-    cross K/V. At 32x32 the res-32 self-attention has 1024 keys and takes
-    the K1 route (attention_packed with the LoRA folded into the
-    weights)."""
+    cross K/V, on the sampling pipelines' route (fuse_attention='packed'):
+    at 32x32 the res-32 self-attention has 1024 keys and takes the K1 route
+    (attention_packed with the LoRA folded into the weights)."""
     ucfg = zoo.tiny_configs()[0]
     unet = load_jax_params(UNet(ucfg, 'cpu'), bundle.unet)
     rng = np.random.default_rng(1)
@@ -75,7 +75,8 @@ def test_unet_eval_matches_jax(bundle, hw):
     with torch.inference_mode():
         kv = unet.cross_attention_kv(e, plora, 0.8)
         out = unet(torch.from_numpy(x).permute(0, 3, 1, 2),
-                   torch.from_numpy(t), e, plora, 0.8, cross_kv=kv)
+                   torch.from_numpy(t), e, plora, 0.8, cross_kv=kv,
+                   fuse_attention='packed')
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(),
                                np.asarray(ref), **TOL)
 

@@ -118,7 +118,9 @@ def test_cuda_launch_checks_raise_before_launch():
 def test_launch_registry():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {'attn_fwd': 0, 'gn_spatial_sums': 0,
-                                   'attn_block': 0, 'region_attn': 0}
+                                   'attn_block': 0, 'region_attn': 0,
+                                   'flash_fwd': 0, 'flash_bwd_dkv': 0,
+                                   'flash_bwd_dq': 0}
     pgn.spatial_sums(torch.ones(1, 4, 2, 2))
     assert ops.launch_counts()['gn_spatial_sums'] == 0
 
@@ -136,4 +138,5 @@ def test_build_needs_nvcc_and_keys_the_library_on_its_sources(monkeypatch):
     monkeypatch.setattr(_build, 'NVCC_FLAGS', _build.NVCC_FLAGS + ('-G',))
     assert _build.library_path() != path
     srcs = {p.name for p in _build.CSRC_DIR.iterdir()}
-    assert {'attn_fwd.cu', 'gemm_bias.cu', 'mma.cuh', 'region_attn.cu'} <= srcs
+    assert {'attn_fwd.cu', 'gemm_bias.cu', 'mma.cuh', 'region_attn.cu',
+            'flash_bwd_dkv.cu', 'flash_bwd_dq.cu'} <= srcs
