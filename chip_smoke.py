@@ -8,20 +8,30 @@ line when any fails, or when no CUDA device is visible):
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc-builds the CUDA kernels from csrc/ into .torch_ext/ (one
                 process per source, in parallel) and JIT-compiles the Triton
-                kernel, timing each;
+                kernels (K2, and K8 with and without SiLU), timing each;
   3. kernels  — each kernel against its plain PyTorch version on the same
                 inputs at the main paths' shapes, error against a stated
-                bound, and both times from CUDA events; the flash kernels
-                (K4-K6) also in fp32 against autograd of the plain
-                attention, a backward rerun that must be bit-identical, and
-                a planted fault (the plain backward without Dvec) that must
-                come out over the bf16 bound;
+                bound, both device times from CUDA events (the calls
+                queued behind a sleep kernel), the least time the card
+                could take (bound_ms: bytes over 3.35 TB/s or operations
+                over their peak rate, whichever is longer) and, where one
+                PyTorch call computes the same function, that call's time
+                (library_ms); the flash kernels (K4-K6) also in fp32 against
+                autograd of the plain attention, a backward rerun that must
+                be bit-identical, and a planted fault (the plain backward
+                without Dvec) that must come out over the bf16 bound; K8 at
+                the VAE decoder's GroupNorm shapes, its planted faults (a
+                and b swapped, SiLU dropped) over its bf16 bound, and its
+                backward against autograd of the plain version;
   4. wiring   — the tiny config in fp32 (TF32 off) at 512x512 on the card
-                and on the CPU: EDLoRAPipeline, 2 steps (K1, K2, K3 launch,
-                no flash kernel) and RegionallyT2IAdapterPipeline with 2
-                regions and a keypose adapter (K7 too), images compared; one
-                EDLoRATrainer loss and backward (10 launches each of K4, K5,
-                K6, none of K1), loss and every gradient group compared;
+                and on the CPU: EDLoRAPipeline, 2 steps (K1, K2, K3, K8
+                launch, no flash kernel) and RegionallyT2IAdapterPipeline
+                with 2 regions and a keypose adapter (K7 too), images
+                compared; one EDLoRATrainer loss and backward (10 launches
+                each of K4, K5, K6, none of K1), loss and every gradient
+                group compared; a two-concept fusion through
+                compose_concepts (2 spatial steps, 64x64, the CPU's latents
+                on both), every solved kernel compared;
   5. main     — ED-LoRA path: SD1.5-width UNet, CLIP and VAE in bf16,
                 random weights from a seeded generator on the card, two
                 concept tokens; two requests of 2 prompts at 512x512, CFG
@@ -48,9 +58,24 @@ line when any fails, or when no CUDA device is visible):
                 embedding, the text LoRA and the UNet LoRA (every attn1
                 leaf included) moved; that the saved .pth reloads with the
                 reference keys; and per step 10 launches each of K4, K5,
-                K6, no K1, one K3 and the encoder's K2 count.
+                K6, no K1, one K3 and the encoder's K2 and K8 counts;
+  8. fusion   — gradient fusion at SD1.5 width through the port's CLI
+                (gradient_fusion.main, in-process) at fuse.sh's operating
+                point (exact solve, 20 spatial steps, 512, bf16 capture) on
+                random:sd15, of three concepts shaped like
+                datasets/data_cfgs/multi-concept/real/
+                potter+hermione+thanos_chilloutmix.json: <hermione1>
+                <hermione2> is phase 7's trained delta, the other two are
+                seeded rank-4 LoRAs on the reference finetune_cfg's layers.
+                Checks 48 text, 32 cross-KV and 96 spatial layers solved
+                with finite residuals, exactly 10 K4 launches per capture
+                eval and no other kernel, that the fused weights differ
+                from the base exactly where a delta had a leaf, and that
+                the directory reloads (vocabulary 49408 + 96); then one
+                regional request of phase 6's layout on the fused model
+                (K7 16 x 50 times, images not constant).
 Phases 5 and 6 also check that no flash kernel launched. Then one JSON line
-with the kernels (launches: phases 5, 6 and 7 together), the nvidia-smi
+with the kernels (launches: phases 5, 6, 7 and 8 together), the nvidia-smi
 line, and the last line {"ok": true, "device": {...}}.
 """
 import copy
@@ -70,13 +95,22 @@ from PIL import Image
 import yaml
 from torch import nn
 
-from mixofshow_tpu_torch import ops, train_edlora, zoo
-from mixofshow_tpu_torch.models.lora import flatten_lora
+import torch.nn.functional as F
+
+from mixofshow_tpu_torch import gradient_fusion, ops, train_edlora, zoo
+from mixofshow_tpu_torch.convert import (convert_edlora_delta,
+                                         load_edlora_delta, save_edlora_delta)
+from mixofshow_tpu_torch.fusion import compose_concepts
+from mixofshow_tpu_torch.fusion.gradient_fusion import layer_kernel
+from mixofshow_tpu_torch.models import (CLIPTextConfig, CLIPTextModel, UNet,
+                                        UNetConfig)
+from mixofshow_tpu_torch.models.lora import flatten_lora, init_lora_tree
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
 from mixofshow_tpu_torch.ops import region_attention as ra
+from mixofshow_tpu_torch.ops.solve import output_difference
 from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
                                            RegionallyT2IAdapterPipeline,
                                            bind_concept_prompt,
@@ -107,7 +141,29 @@ WIRING_BOUND = 2e-3
 # largest difference relative to its largest entry (fp32 sums in another
 # order through the UNet, CLIP and the VAE encode)
 WIRING_TRAIN_BOUND = 1e-3
+# tiny fp32 fusion, card vs CPU: each solved layer's outputs on its captured
+# features, ‖X(W_card − W_cpu)‖ / ‖X(W_cpu − W₀)‖ (ops.solve
+# .output_difference). The kernels' largest difference relative to max|ΔW|
+# is printed beside it: cuSOLVER and LAPACK keep or drop eigenvalues within
+# an fp32 ulp of e_max of the rank cutoff differently, which moves kernel
+# entries along directions the data hardly sees
+WIRING_FUSION_BOUND = 1e-3
+# K8: bf16 one ulp at the top binade of the twin (2^-7 of max|twin|: both
+# round x·a and + b to bf16, the SiLU's fp32 exp may differ by an ulp), fp32
+# 1e-6 of max|twin| (an FMA, and the exp, in another order)
+APPLY_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
+# its plain backward against autograd of the plain forward, fp32: da and db
+# sum 1024 terms in another order
+APPLY_BWD_BOUND = 1e-5
 TRAIN_STEPS = 6
+FUSION_STEPS = 20
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s,
+# dense bf16 tensor-core and fp32 CUDA-core operations/s
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+# cycles of the sleep kernel cuda_ms queues its calls behind (~50 ms)
+SLEEP_CYCLES = 100_000_000
 
 KERNEL_META = {
     'attn_fwd': ('cuda', 'mixofshow_tpu_torch/csrc/attn_fwd.cu',
@@ -124,9 +180,12 @@ KERNEL_META = {
                       'mixofshow_tpu/ops/flash_attention.py:181'),
     'flash_bwd_dq': ('cuda', 'mixofshow_tpu_torch/csrc/flash_bwd_dq.cu',
                      'mixofshow_tpu/ops/flash_attention.py:234'),
+    'gn_apply': ('triton', 'mixofshow_tpu_torch/ops/gn_stats_triton.py',
+                 'mixofshow_tpu/ops/gn_stats.py:101'),
 }
 FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
-PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block')
+PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block',
+                      'gn_apply')
 SAMPLING_KERNELS = PLAIN_PATH_KERNELS + ('region_attn',)
 # bench.py's three near-full-height boxes, (start_h, start_w, end_h, end_w)
 REGIONS = [('a <potter1> <potter2>, in a jacket', 'low quality',
@@ -151,16 +210,23 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, iters=10, warmup=2):
+    """Device milliseconds per call: the calls are queued behind a sleep
+    kernel (~50 ms, far longer than their enqueue), so CUDA events around
+    them time the card and not the host's launch cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
+    late = start.query()   # the sleep ran out while the host still queued
     end.record()
     end.synchronize()
+    check(not late, 'cuda_ms: the host queued the calls slower than the '
+          'sleep in front of them; the time would be the host\'s')
     return start.elapsed_time(end) / iters
 
 
@@ -172,18 +238,52 @@ def smi_line():
     return out[0]
 
 
+def least_time(nbytes, operations, peak_ops):
+    """(bound_ms, bound_by): the least time the card could take, the longer
+    of the bytes at PEAK_BYTES and the operations at `peak_ops`."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = operations / peak_ops * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def row(err, ms, plain_ms, bnd, library_ms=None):
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': library_ms}
+
+
+def sdpa_ms(q, k, v):
+    """One F.scaled_dot_product_attention call on (B, S, H, D) tensors (as
+    (B, H, S, D) views)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+
+def attn_flops(b, h, sq, sk, d, products):
+    """Tensor-core operations of `products` (Sq x Sk x D) matrix products
+    per (batch, head)."""
+    return 2 * products * b * h * sq * sk * d
+
+
 def phase_build(dev):
     t0 = time.perf_counter()
     _build.cuda_lib()
     t_cuda = time.perf_counter() - t0
     t0 = time.perf_counter()
+    ab = torch.ones(1, 8, device=dev)
     for dt in (torch.bfloat16, torch.float32):
-        gs.spatial_sums(torch.ones(1, 8, 4, 4, device=dev, dtype=dt))
+        x = torch.ones(1, 8, 4, 4, device=dev, dtype=dt)
+        gs.spatial_sums(x)
+        for act in gs.ACTS:
+            gs.scale_bias_act(x, ab, ab, act)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     print(f'[build] nvcc K1 K3 K4-K7 library: {t_cuda:.2f} s '
-          f'({_build.library_path().name}); Triton K2 JIT (bf16+fp32): '
-          f'{t_triton:.2f} s', flush=True)
+          f'({_build.library_path().name}); Triton K2 + K8 JIT (bf16+fp32, '
+          f'K8 with and without SiLU): {t_triton:.2f} s', flush=True)
 
 
 def phase_kernels(dev):
@@ -202,16 +302,20 @@ def phase_kernels(dev):
                                 (4, 1024, 8, 80, 1024, 1024),
                                 (2, 1000, 8, 40, 1100, 1037)]:
         q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
-        out = fa.attn_fwd(q, k, v, kvl).float()
+        out = fa.attn_fwd(q, k, v, kvl)
         ref = fa.attn_fwd_plain(q.float(), k.float(), v.float(), kvl)
-        err = (out - ref).abs().max().item()
+        err = (out.float() - ref).abs().max().item()
         ms = cuda_ms(lambda: fa.attn_fwd(q, k, v, kvl))
         pms = cuda_ms(lambda: fa.attn_fwd_plain(q, k, v, kvl))
+        bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], out),
+                    attn_flops(b, h, s, kvl, d, 2), PEAK_BF16)
+        lib = sdpa_ms(q, k, v) if kvl == sk else None
         print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
               f'kv_len={kvl}: max_abs_err {err:.3e} (bound {ATTN_BOUND}); '
-              f'kernel {ms:.4f} ms, plain {pms:.4f} ms', flush=True)
+              f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
+              f'ms ({bnd[1]}), SDPA {lib} ms', flush=True)
         check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_fwd disagrees')
-        res.setdefault('attn_fwd', (err, ms, pms))
+        res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
     # K2 at the VAE decoder's GroupNorm inputs (2 images): NHWC
     # (2,64,64,512), (2,256,256,256), (2,512,512,128) held NCHW
     for shape in [(2, 128, 512, 512), (2, 512, 64, 64), (2, 256, 256, 256)]:
@@ -224,29 +328,42 @@ def phase_kernels(dev):
                   ((s2 - r2).abs() / r2).max().item())
         ms = cuda_ms(lambda: gs.spatial_sums(x))
         pms = cuda_ms(lambda: gs.spatial_sums_plain(x))
+        bnd = least_time(nbytes(x, s1, s2), 3 * x.numel(), PEAK_FP32)
         print(f'[kernels] gn_spatial_sums (B,C,H,W)={shape}: max_abs_err '
               f'{err:.3e}, relative {rel:.3e} (bound {SUMS_BOUND}); kernel '
-              f'{ms:.4f} ms, plain {pms:.4f} ms', flush=True)
+              f'{ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms '
+              f'({bnd[1]})', flush=True)
         check(math.isfinite(rel) and rel <= SUMS_BOUND,
               'gn_spatial_sums disagrees')
-        res.setdefault('gn_spatial_sums', (err, ms, pms))
+        res.setdefault('gn_spatial_sums', row(err, ms, pms, bnd))
     # K3 at the VAE mid-block: 2 images, 64x64 tokens, C=512, one head
     c = 512
     x = randn(2, 4096, c)
     w = [randn(c, c, scale=c ** -0.5) for _ in range(4)]
     bias = [randn(c, scale=0.1) for _ in range(4)]
     args = (x, x, *w, bias[3], 1, *bias[:3])
-    out = fa.attention_block(*args).float()
+    out = fa.attention_block(*args)
     ref = fa.attention_block_plain(*(a.float() if torch.is_tensor(a) else a
                                      for a in args))
-    err = (out - ref).abs().max().item()
+    err = (out.float() - ref).abs().max().item()
     ms = cuda_ms(lambda: fa.attention_block(*args))
     pms = cuda_ms(lambda: fa.attention_block_plain(*args))
+
+    def library():  # four F.linear and SDPA, one head
+        q, k, v = (F.linear(x, w[i], bias[i])[:, None] for i in range(3))
+        o = F.scaled_dot_product_attention(q, k, v)[:, 0]
+        return F.linear(o, w[3], bias[3])
+
+    bnd = least_time(nbytes(x, *w, *bias, out),
+                4 * 2 * 2 * 4096 * c * c + attn_flops(2, 1, 4096, 4096, c, 2),
+                PEAK_BF16)
+    lib = cuda_ms(library)
     print(f'[kernels] attn_block (B,S,C)=(2,4096,512) heads=1 with biases: '
           f'max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel {ms:.4f} ms, '
-          f'plain {pms:.4f} ms', flush=True)
+          f'plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), four '
+          f'F.linear + SDPA {lib:.4f} ms', flush=True)
     check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_block disagrees')
-    res['attn_block'] = (err, ms, pms)
+    res['attn_block'] = row(err, ms, pms, bnd, lib)
     # K7 at the regional path's cross-attention layers: 2 images x CFG,
     # 8 heads, 77 keys, the three boxes of REGIONS
     boxes = [box for _, _, box in REGIONS]
@@ -257,20 +374,93 @@ def phase_kernels(dev):
         rk, rv = randn(3, b, sk, h, d), randn(3, b, sk, h, d)
         px = ra.boxes_to_grid(boxes, hw, hw)
         args = (q, gk, gv, rk, rv, px, (hw, hw))
-        out = ra.region_attention(*args).float()
+        out = ra.region_attention(*args)
         ref = ra.region_attention_plain(*(a.float() if torch.is_tensor(a)
                                           else a for a in args))
-        err = (out - ref).abs().max().item()
+        err = (out.float() - ref).abs().max().item()
         ms = cuda_ms(lambda: ra.region_attention(*args))
         pms = cuda_ms(lambda: ra.region_attention_plain(*args))
+        # this layout's work: a pixel attends each region it lies in, or
+        # the global context when it lies in none
+        cnt = sum(ra.box_mask(box, hw, hw, 'cpu') for box in px)
+        contexts = torch.clamp(cnt, min=1).sum().item()
+        bnd = least_time(nbytes(q, gk, gv, rk, rv, out),
+                    attn_flops(b, h, contexts, sk, d, 2), PEAK_BF16)
         print(f'[kernels] region_attn (B,N,H,D)=({b},{hw}x{hw},{h},{d}) '
               f'Sk={sk} R=3: max_abs_err {err:.3e} (bound {ATTN_BOUND}); '
-              f'kernel {ms:.4f} ms, plain {pms:.4f} ms', flush=True)
+              f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
+              f'ms ({bnd[1]})', flush=True)
         check(math.isfinite(err) and err <= ATTN_BOUND,
               'region_attn disagrees')
-        res.setdefault('region_attn', (err, ms, pms))
+        res.setdefault('region_attn', row(err, ms, pms, bnd))
     res.update(flash_kernel_checks(dev))
+    res['gn_apply'] = apply_kernel_checks(dev)
     return res
+
+
+def apply_kernel_checks(dev):
+    """K8 against its twin at the VAE decoder's GroupNorm inputs (2 images,
+    NCHW): the mid-block attention's norm (no act) first, then the resnets'
+    SiLU norms at 64², 256² and 512², bf16 and fp32; planted faults (a and
+    b swapped, the SiLU dropped) must come out over the bf16 bound; the
+    backward against autograd of the twin. Returns the row of the first
+    shape, with torch.addcmul as its library call."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    first = None
+    for shape, act in [((2, 512, 64, 64), 'none'), ((2, 512, 64, 64), 'silu'),
+                       ((2, 256, 256, 256), 'silu'),
+                       ((2, 128, 512, 512), 'silu')]:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=g, device=dev).to(dt)
+            a = torch.randn(shape[:2], generator=g, device=dev) * 0.3 + 1.0
+            b = torch.randn(shape[:2], generator=g, device=dev) * 0.3
+            out = gs.scale_bias_act(x, a, b, act)
+            ref = gs.scale_bias_act_plain(x, a, b, act)
+            top = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            faults = [gs.scale_bias_act_plain(x, b, a, act)]
+            if act == 'silu':
+                faults.append(gs.scale_bias_act_plain(x, a, b, 'none'))
+            fault = min((f.float() - ref.float()).abs().max().item() / top
+                        for f in faults)
+            ms = cuda_ms(lambda: gs.scale_bias_act(x, a, b, act))
+            pms = cuda_ms(lambda: gs.scale_bias_act_plain(x, a, b, act))
+            bnd = least_time(nbytes(x, a, b, out),
+                        (2 if act == 'none' else 6) * x.numel(), PEAK_FP32)
+            lib = None
+            if act == 'none':
+                a4, b4 = (t.to(dt)[:, :, None, None] for t in (a, b))
+                lib = cuda_ms(lambda: torch.addcmul(b4, x, a4))
+            print(f'[kernels] gn_apply (B,C,H,W)={shape} act={act} '
+                  f'{str(dt)[6:]}: max_abs_err {err:.3e}, of max|twin| '
+                  f'{err / top:.3e} (bound {APPLY_BOUND[dt]:.3e}); planted '
+                  f'fault {fault:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} '
+                  f'ms, least {bnd[0]:.4f} ms ({bnd[1]}), addcmul {lib} ms',
+                  flush=True)
+            check(math.isfinite(err) and err / top <= APPLY_BOUND[dt],
+                  'gn_apply disagrees')
+            check(dt != torch.bfloat16 or fault > APPLY_BOUND[dt],
+                  'gn_apply bound does not reject the planted fault')
+            if first is None:
+                first = row(err, ms, pms, bnd, lib)
+    # the backward (plain torch) behind the kernel's forward, fp32
+    x = torch.randn((2, 64, 32, 32), generator=g, device=dev)
+    a = torch.randn((2, 64), generator=g, device=dev) * 0.3 + 1.0
+    b = torch.randn((2, 64), generator=g, device=dev) * 0.3
+    w = torch.randn(x.shape, generator=g, device=dev)
+    grads = []
+    for fn in (gs.scale_bias_act, gs.scale_bias_act_plain):
+        ts = [t.clone().requires_grad_() for t in (x, a, b)]
+        (fn(*ts, 'silu') * w).sum().backward()
+        grads.append([t.grad for t in ts])
+    gerr = max(_max_err(p, q) / q.abs().max().item()
+               for p, q in zip(*grads))
+    print(f'[kernels] gn_apply backward vs autograd of the twin, fp32 '
+          f'(2,64,32,32) silu: {gerr:.3e} of max|grad| (bound '
+          f'{APPLY_BWD_BOUND})', flush=True)
+    check(math.isfinite(gerr) and gerr <= APPLY_BWD_BOUND,
+          'gn_apply backward disagrees')
+    return first
 
 
 def _max_err(a, b):
@@ -358,6 +548,32 @@ def flash_kernel_checks(dev):
                                                       dvec)))}
         line += '; ' + ', '.join(f'{n} {t[0]:.4f} ms (plain {t[1]:.4f})'
                                  for n, t in times.items())
+        # the fp32 variants run on the CUDA cores, bf16 on the tensor cores
+        peak = PEAK_BF16 if bf16 else PEAK_FP32
+        bnds = {'flash_fwd': least_time(nbytes(q, k, v, o, lse),
+                                        attn_flops(b, h, sq, sk, d, 2), peak),
+                'flash_bwd_dkv': least_time(
+                    nbytes(q, k, v, do, lse, dvec, dk, dv),
+                    attn_flops(b, h, sq, sk, d, 4), peak),
+                'flash_bwd_dq': least_time(
+                    nbytes(q, k, v, do, lse, dvec, dq),
+                    attn_flops(b, h, sq, sk, d, 3), peak)}
+        line += '; least ' + ', '.join(
+            f'{n} {t[0]:.4f} ms ({t[1]})' for n, t in bnds.items())
+        if not res:   # the first (main-path) shape: SDPA's times
+            qa, ka, va = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qa, ka, va)
+            do_t = do.transpose(1, 2)
+            libs = {'flash_fwd': sdpa_ms(q, k, v)}
+            libs['flash_bwd_dkv'] = libs['flash_bwd_dq'] = cuda_ms(
+                lambda: torch.autograd.grad(sdpa_out, (qa, ka, va), do_t,
+                                            retain_graph=True))
+            line += f'; SDPA forward {libs["flash_fwd"]:.4f} ms, SDPA ' \
+                f'backward (dq, dk, dv) {libs["flash_bwd_dq"]:.4f} ms'
+            for name in bnds:
+                res[name] = row(abs_errs[name], *times[name], bnds[name],
+                                libs[name])
         print(line, flush=True)
         check(same, 'flash backward reruns differ')
         check(math.isfinite(lse_err) and lse_err <= lse_bound,
@@ -366,7 +582,6 @@ def flash_kernel_checks(dev):
               f'flash bound {bound} does not reject the planted fault')
         for name, err in errs.items():
             check(math.isfinite(err) and err <= bound, f'{name} disagrees')
-            res.setdefault(name, (abs_errs[name], *times[name]))
     return res
 
 
@@ -462,6 +677,7 @@ def phase_main(dev, card):
     check(np.array_equal(out_call, out_submit),
           'main: two runs with the same latents differ')
     check(all(counts[k] > 0 for k in PLAIN_PATH_KERNELS) and
+          counts['gn_apply'] == counts['gn_spatial_sums'] and
           all(counts[k] == 0 for k in FLASH_KERNELS),
           f'main: unexpected launches: {counts}')
     print(f'[main] 2 prompts 512x512, 50 steps, CFG 7.5: __call__ '
@@ -517,6 +733,7 @@ def phase_regional(dev, card):
     for req in (first, second):
         check(req['region_attn'] == 16 * 50 and
               all(req[k] > 0 for k in PLAIN_PATH_KERNELS) and
+              req['gn_apply'] == req['gn_spatial_sums'] and
               all(req[k] == 0 for k in FLASH_KERNELS),
               f'regional: launches per request {first}, {second}')
     print(f'[regional] 3 regions, keypose, 2 images 512x512, 50 steps, CFG '
@@ -605,9 +822,94 @@ def phase_wiring_train(dev):
               for v in errs.values()), 'wiring train: card and CPU disagree')
     want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
             'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
-            'gn_spatial_sums': _encoder_norms(gpu.vae)}
-    check(all(counts[k] == n for k, n in want.items()),
-          f'wiring train: launches {counts}, expected {want}')
+            'gn_spatial_sums': _encoder_norms(gpu.vae),
+            'gn_apply': _encoder_norms(gpu.vae)}
+    check(counts == want, f'wiring train: launches {counts}, expected {want}')
+
+
+def _seeded_delta(path, names, seed, unet, text_encoder):
+    """A concept delta like a trained one, from a seed: rank-4 LoRA on the
+    reference finetune_cfg's layers (text q/k/v/out, UNet attn1 and attn2
+    q/k/v/out) with up ~ N(0, 0.01), and <rand-0.013> rows for each token.
+    `unet` and `text_encoder` give only shapes (meta modules will do)."""
+    rng = np.random.default_rng(seed)
+    tl = init_lora_tree(rng, text_encoder, lambda p: '/attn/' in p)
+    ul = init_lora_tree(rng, unet, lambda p: '/attn1/' in p or '/attn2/' in p)
+    for leaf in [*flatten_lora(tl).values(), *flatten_lora(ul).values()]:
+        leaf['up'] = torch.from_numpy(rng.normal(
+            0, 0.01, tuple(leaf['up'].shape)).astype(np.float32))
+    width = text_encoder.cfg.width
+    emb = {n: torch.from_numpy((0.013 * rng.normal(size=(16, width)))
+                               .astype(np.float32)) for n in names}
+    save_edlora_delta(str(path), {'new_concept_embedding': emb,
+                                  'text_lora': tl, 'unet_lora': ul})
+
+
+def _concept_entry(path, names):
+    return {'lora_path': str(path), 'unet_alpha': 1.0,
+            'text_encoder_alpha': 1.0, 'concept_name': ' '.join(names)}
+
+
+def phase_wiring_fusion(dev):
+    """Two tiny concepts fused through compose_concepts in fp32 (TF32 off)
+    at 2 spatial steps and 64x64, on the card and on the CPU, from the same
+    weights, deltas and latents (the CPU's draws); every solved kernel of
+    the three phases compared."""
+    exact_fp32()
+    root = Path(tempfile.mkdtemp(prefix='mos_chip_fuse_tiny_'))
+    try:
+        b = zoo.load_models('random:tiny', 'cpu', seed=0)
+        cfg = []
+        for i, names in enumerate((['<c1>', '<c2>'], ['<d1>', '<d2>'])):
+            _seeded_delta(root / f'{i}.pth', names, 100 + i, b.unet,
+                          b.text_encoder)
+            cfg.append(_concept_entry(root / f'{i}.pth', names))
+        (root / 'concepts.json').write_text(json.dumps(cfg))
+        lat = [torch.randn((1, 4, 8, 8),
+                           generator=torch.Generator().manual_seed(ci))
+               for ci in range(2)]
+        reports, counts = {}, None
+        for name, d in (('card', dev), ('cpu', torch.device('cpu'))):
+            mods = copy.deepcopy((b.unet, b.text_encoder, b.vae))
+            bundle = zoo.ModelBundle(*(m.to(d) for m in mods),
+                                     CLIPTokenizer())
+            reports[name] = {}
+            ops.reset_launch_counts()
+            compose_concepts(str(root / 'concepts.json'), None,
+                             str(root / name), d, spatial_steps=2,
+                             image_size=64, bundle=bundle,
+                             compute_dtype=torch.float32, latents=lat,
+                             report=reports[name])
+            counts = counts or ops.launch_counts()
+        errs, entries, sizes = {}, {}, {}
+        for phase, module in (('text', b.text_encoder), ('crosskv', b.unet),
+                              ('spatial', b.unet)):
+            cpu, card = reports['cpu'][phase], reports['card'][phase]
+            check(set(cpu['kernels']) == set(card['kernels']),
+                  f'wiring fusion: {phase} solved other layers')
+            sizes[phase] = len(cpu['kernels'])
+            w0 = {p: layer_kernel(module, p) for p in cpu['kernels']}
+            errs[phase] = max(output_difference(
+                card['kernels'][p].cpu(), w, w0[p], cpu['grams'][p])
+                for p, w in cpu['kernels'].items())
+            entries[phase] = max(
+                (card['kernels'][p].cpu() - w).abs().max().item() /
+                (w - w0[p]).abs().max().item()
+                for p, w in cpu['kernels'].items())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'[wiring] fusion: tiny fp32 2 concepts, 2 spatial steps 64x64, '
+          f'card vs CPU: layers {sizes}; largest output difference '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bound {WIRING_FUSION_BOUND}); largest kernel entry '
+          'difference of max|ΔW| '
+          + ', '.join(f'{k} {v:.3e}' for k, v in entries.items())
+          + f'; card seconds {reports["card"]["seconds"]}; launches '
+          f'{counts}', flush=True)
+    check(sizes == {'text': 8, 'crosskv': 32, 'spatial': 96},
+          f'wiring fusion: layers {sizes}')
+    check(all(math.isfinite(v) and v <= WIRING_FUSION_BOUND
+              for v in errs.values()), 'wiring fusion: card and CPU disagree')
 
 
 def _write_concept(root: Path, seed: int = 0):
@@ -650,7 +952,8 @@ def _write_concept(root: Path, seed: int = 0):
     return path
 
 
-def phase_train(dev, card):
+def phase_train(dev, card, delta_path):
+    """Phase 7; the run's last delta is copied to `delta_path`."""
     root = Path(tempfile.mkdtemp(prefix='mos_chip_train_'))
     try:
         yml = _write_concept(root)
@@ -674,7 +977,7 @@ def phase_train(dev, card):
         enc_norms = _encoder_norms(trainer.vae)
         want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
                 'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
-                'gn_spatial_sums': enc_norms}
+                'gn_spatial_sums': enc_norms, 'gn_apply': enc_norms}
         step_s = []
         for prev, cur in zip(marks, marks[1:]):
             per = {k: cur[2][k] - prev[2][k] for k in cur[2]}
@@ -722,6 +1025,7 @@ def phase_train(dev, card):
                   .cpu()),
               f'train: saved delta {saved}, {len(te)} text and {len(un)} '
               'UNet keys')
+        shutil.copy(models / 'edlora_model-latest.pth', delta_path)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     steady = sum(step_s[1:]) / len(step_s[1:])
@@ -738,6 +1042,120 @@ def phase_train(dev, card):
     return {k: total[k] - marks[0][2][k] for k in total}
 
 
+def _lora_paths(delta_path):
+    d = convert_edlora_delta(load_edlora_delta(str(delta_path)))
+    return {'text_encoder': set(flatten_lora(d['text_lora'])),
+            'unet': set(flatten_lora(d['unet_lora']))}
+
+
+def phase_fusion(dev, card, hermione):
+    """Phase 8: fuse three concepts at SD1.5 width through the CLI, reload
+    the checkpoint and sample one regional request from it."""
+    root = Path(tempfile.mkdtemp(prefix='mos_chip_fuse_'))
+    try:
+        shapes = (UNet(UNetConfig.sd15(), 'meta'),
+                  CLIPTextModel(CLIPTextConfig.sd15(), 'meta'))
+        cfg, leaves = [], {'text_encoder': set(), 'unet': set()}
+        for name, seed in (('potter', 1), ('hermione', None), ('thanos', 3)):
+            names = [f'<{name}1>', f'<{name}2>']
+            path = hermione if seed is None else root / f'{name}.pth'
+            if seed is not None:
+                _seeded_delta(path, names, seed, *shapes)
+            cfg.append(_concept_entry(path, names))
+            for k, v in _lora_paths(path).items():
+                leaves[k] |= v
+        (root / 'concepts.json').write_text(json.dumps(cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        report = {}
+        ckpt, new_cfg = gradient_fusion.main(
+            ['--concept_cfg', str(root / 'concepts.json'), '--save_path',
+             str(root / 'out'), '--pretrained_models', 'random:sd15',
+             '--spatial_steps', str(FUSION_STEPS), '--image_size', '512',
+             '--device', str(dev)], report=report)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        evals = len(cfg) * FUSION_STEPS
+        want = {k: 0 for k in counts}
+        want['flash_fwd'] = 10 * evals
+        layers = {k: len(report[k]['kernels'])
+                  for k in ('text', 'crosskv', 'spatial')}
+        finite = all(math.isfinite(r) for k in layers
+                     for r in report[k]['residuals'].values())
+        check(counts == want, f'fusion: launches {counts}, expected {want}')
+        check(layers == {'text': 48, 'crosskv': 32, 'spatial': 96} and
+              finite, f'fusion: layers solved {layers}, finite {finite}')
+
+        t0 = time.perf_counter()
+        fused = zoo.load_models(ckpt, dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        vocab = fused.text_encoder.cfg.vocab_size
+        check(vocab == 49408 + 96 and len(fused.tokenizer) == vocab,
+              f'fusion: reloaded vocabulary {vocab}')
+        base = zoo.load_models('random:sd15', dev, seed=0)
+        changed = {}
+        for model in ('unet', 'text_encoder', 'vae'):
+            fs = getattr(fused, model).state_dict()
+            for k, want_t in getattr(base, model).state_dict().items():
+                got = fs[k]
+                if k == 'token_embedding.weight':
+                    check(torch.equal(got[:want_t.shape[0]], want_t),
+                          'fusion: the base vocabulary rows moved')
+                    continue
+                path = k[:-len('.weight')].replace('.', '/')
+                if k.endswith('.weight') and path in leaves.get(model, ()):
+                    changed[path] = (got - want_t).abs().max().item()
+                else:
+                    check(torch.equal(got, want_t),
+                          f'fusion: {model} {k} moved without a delta')
+        del base
+        check(len(changed) == 48 + 128 and min(changed.values()) > 0,
+              f'fusion: {len(changed)} LoRA layers, smallest change '
+              f'{min(changed.values())}')
+
+        adapter = zoo.load_t2i_adapter('keypose', 'sd15', dev, seed=3,
+                                       dtype=torch.bfloat16)
+        pipe = RegionallyT2IAdapterPipeline(
+            fused.unet, fused.text_encoder, fused.vae, fused.tokenizer, dev,
+            torch.bfloat16, new_concept_cfg=new_cfg, keypose_adapter=adapter)
+        layout = [('three people standing in a park, best quality', REGIONS)]
+        lat = torch.randn((2, 4, 64, 64), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(2))
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        out = pipe(layout, keypose_adapter_input=Image.open(POSE).convert(
+            'RGB'), height=512, width=512, num_inference_steps=50,
+            guidance_scale=7.5, num_images_per_prompt=2, latents=lat,
+            output_type='uint8')
+        t_req = time.perf_counter() - t0
+        after = ops.launch_counts()
+        req = {k: after[k] - before[k] for k in after}
+        check(out.shape == (2, 512, 512, 3) and
+              all(int(im.max()) > int(im.min()) for im in out),
+              f'fusion: the regional request gave {out.shape}')
+        check(req['region_attn'] == 16 * 50 and
+              all(req[k] > 0 for k in PLAIN_PATH_KERNELS) and
+              all(req[k] == 0 for k in FLASH_KERNELS),
+              f'fusion: regional launches {req}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sec = report['seconds']
+    print(f'[fusion] SD1.5 gradient fusion through gradient_fusion.main, 3 '
+          f'concepts, exact solve, {FUSION_STEPS} spatial steps at 512x512, '
+          f'bf16 capture: whole {sec["total"]:.2f} s ('
+          + ', '.join(f'{k} {v:.2f}' for k, v in sec.items() if k != 'total')
+          + f' s); layers {layers}; peak device memory {peak / 2 ** 30:.2f} '
+          f'GiB; launches {counts} ({evals} capture evals); smallest change '
+          f'of a LoRA layer {min(changed.values()):.3e}; reload {t_load:.2f}'
+          f' s, vocabulary {vocab}; regional request on the fused model '
+          f'(3 regions, keypose, 2 images 512x512, 50 steps, CFG 7.5) '
+          f'{t_req:.3f} s ({2 / t_req:.4f} img/s), launches {req}; {card}',
+          flush=True)
+    return {k: counts[k] + req[k] for k in counts}
+
+
 def main():
     dev = require_cuda()
     card = smi_line()
@@ -747,14 +1165,20 @@ def main():
     kres = phase_kernels(dev)
     phase_wiring(dev)
     phase_wiring_train(dev)
+    phase_wiring_fusion(dev)
     plain = phase_main(dev, card)
     regional = phase_regional(dev, card)
-    train = phase_train(dev, card)
+    scratch = Path(tempfile.mkdtemp(prefix='mos_chip_delta_'))
+    try:
+        train = phase_train(dev, card, scratch / 'hermione.pth')
+        fusion = phase_fusion(dev, card, scratch / 'hermione.pth')
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     kernels = [{'name': name, 'route': route, 'source': src,
                 'replaces': rep,
-                'launches': plain[name] + regional[name] + train[name],
-                'max_abs_err': kres[name][0], 'ms': kres[name][1],
-                'plain_ms': kres[name][2]}
+                'launches': sum(p[name] for p in (plain, regional, train,
+                                                  fusion)),
+                **kres[name]}
                for name, (route, src, rep) in KERNEL_META.items()]
     print(json.dumps({'kernels': kernels}))
     print(card)

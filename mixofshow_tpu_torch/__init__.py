@@ -1,9 +1,10 @@
 """mixofshow_tpu_torch: the PyTorch/CUDA port of mixofshow_tpu.
 
 The JAX package `mixofshow_tpu` is the reference; this package mirrors its
-layout (models/, ops/, diffusion/, text/, pipelines/, convert/, utils/) with
-one port module per reference module. It imports torch and never jax, and
-never `mixofshow_tpu` (whose `__init__` loads jax).
+layout (models/, ops/, diffusion/, text/, pipelines/, fusion/, data/,
+convert/, utils/) with one port module per reference module. It imports
+torch and never jax, and never `mixofshow_tpu` (whose `__init__` loads
+jax).
 
 Conventions:
   * activations are NCHW, conv weights OIHW, Linear weights (out, in);

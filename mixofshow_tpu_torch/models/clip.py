@@ -6,7 +6,9 @@ specifics:
   * concept embeddings live in a separate (num_new_tokens, width) table
     passed at call time; token ids >= vocab_size index into it, so the base
     vocab table is never resized;
-  * LoRA on the attention q/k/v/out projections threads through `lora`.
+  * LoRA on the attention q/k/v/out projections threads through `lora`;
+  * `capture_grams` also returns each block's fp32 input Grams for
+    gradient fusion (ops/solve.py), rows masked by `token_mask`.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from torch import nn
 
 from mixofshow_tpu_torch.models.layers import dense, layer_norm, sdpa
 from mixofshow_tpu_torch.models.lora import maybe
+from mixofshow_tpu_torch.ops.solve import gram
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,21 +95,34 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 concept_embedding: Optional[torch.Tensor] = None,
-                lora=None, lora_alpha: float = 1.0):
-        """last_hidden_state (B, S, width) after the final layer norm."""
+                lora=None, lora_alpha: float = 1.0,
+                capture_grams: bool = False,
+                token_mask: Optional[torch.Tensor] = None):
+        """last_hidden_state (B, S, width) after the final layer norm. With
+        `capture_grams`, (last_hidden_state, [{'qkv', 'out', 'fc1', 'fc2'}
+        per block]): the fp32 Gram of each linear's input over the rows
+        where `token_mask` (B, S) is set (JAX `clip_text_encode`)."""
         x = embed_tokens(self.token_embedding.weight, input_ids,
                          concept_embedding)
         x = x + self.position_embedding.weight[:x.shape[1]].to(x.dtype)
         b, s, c = x.shape
         heads = self.cfg.heads
+        grams = []
         for i, blk in enumerate(self.blocks):
             alora = maybe(lora, 'blocks', i, 'attn')
-            h = layer_norm(x, blk.ln1)
-            q, k, v = (dense(h, getattr(blk.attn, n), maybe(alora, n),
+            attn_in = layer_norm(x, blk.ln1)
+            q, k, v = (dense(attn_in, getattr(blk.attn, n), maybe(alora, n),
                              lora_alpha).view(b, s, heads, c // heads)
                        for n in ('q', 'k', 'v'))
             o = sdpa(q, k, v, causal=True).reshape(b, s, c)
             x = x + dense(o, blk.attn.out, maybe(alora, 'out'), lora_alpha)
             h = layer_norm(x, blk.ln2)
-            x = x + dense(quick_gelu(dense(h, blk.mlp.fc1)), blk.mlp.fc2)
-        return layer_norm(x, self.final_norm)
+            mid = quick_gelu(dense(h, blk.mlp.fc1))
+            x = x + dense(mid, blk.mlp.fc2)
+            if capture_grams:
+                grams.append({'qkv': gram(attn_in, token_mask),
+                              'out': gram(o, token_mask),
+                              'fc1': gram(h, token_mask),
+                              'fc2': gram(mid, token_mask)})
+        out = layer_norm(x, self.final_norm)
+        return (out, grams) if capture_grams else out

@@ -64,13 +64,15 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, act: Optional[str] = None,
 
     Var = E[x²] − E[x]², clamped at 0, from fp32 accumulators; the affine is
     folded into per-(batch, channel) a, b in fp32 and applied in the
-    activation dtype. `stats='kernel'` takes the sums from
-    ops.gn_stats.spatial_sums (the VAE's route); 'onepass' from plain torch
-    (the UNet's route, as in the JAX package)."""
+    activation dtype. `stats='kernel'` (the VAE's route) takes the sums from
+    ops.gn_stats.spatial_sums (K2) and applies a, b and the SiLU in one pass
+    of ops.gn_stats.scale_bias_act (K8, its SiLU in fp32); 'onepass' does
+    both in plain torch (the UNet's route, as in the JAX package)."""
     b, c, h, w = x.shape
     g = norm.num_groups
     if stats == 'kernel':
-        from mixofshow_tpu_torch.ops.gn_stats import spatial_sums
+        from mixofshow_tpu_torch.ops.gn_stats import (scale_bias_act,
+                                                      spatial_sums)
         s, s2 = spatial_sums(x)
     elif stats == 'onepass':
         s, s2 = _onepass_sums(x)
@@ -83,6 +85,8 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, act: Optional[str] = None,
     rstd_c = torch.rsqrt(var_g + norm.eps).repeat_interleave(c // g, dim=-1)
     a = norm.weight.float()[None, :] * rstd_c
     bb = norm.bias.float()[None, :] - mean_c * a
+    if stats == 'kernel':
+        return scale_bias_act(x, a, bb, act or 'none')
     out = x * a.to(x.dtype)[:, :, None, None] \
         + bb.to(x.dtype)[:, :, None, None]
     if act == 'silu':

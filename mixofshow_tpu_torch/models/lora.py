@@ -58,13 +58,9 @@ def init_lora_tree(rng: np.random.Generator, module: nn.Module,
     for path, mod in _jax_order_modules(module):
         if not _is_linear_leaf(mod) or not path_filter(path):
             continue
-        node = tree
-        parts = path.split('/')
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = init_lora_leaf(
+        set_path(tree, path, init_lora_leaf(
             rng, mod.weight.shape[1], mod.weight.shape[0], rank, device,
-            dtype)
+            dtype))
     return tree
 
 
@@ -82,6 +78,24 @@ def flatten_lora(tree, prefix: str = '') -> Dict[str, Dict]:
 
     walk(tree, prefix)
     return out
+
+
+def set_path(tree: Dict, path: str, value) -> None:
+    """tree['a']['b']... = value for path 'a/b/...', making the dicts on
+    the way."""
+    parts = path.split('/')
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
+def get_module(module: nn.Module, path: str) -> nn.Module:
+    """The submodule at a '/'-joined path ('down_blocks/0/attentions/1/
+    attn2/to_k')."""
+    for part in path.split('/'):
+        module = module[int(part)] if isinstance(module, nn.ModuleList) \
+            else getattr(module, part)
+    return module
 
 
 def num_lora_leaves(tree) -> int:

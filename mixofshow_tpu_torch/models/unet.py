@@ -1,7 +1,6 @@
 """SD1.x UNet2DConditionModel forward as a torch module, NCHW.
 
-Port of mixofshow_tpu/models/unet.py (Gram capture for fusion is later
-work). ED-LoRA specifics:
+Port of mixofshow_tpu/models/unet.py. ED-LoRA specifics:
   * every cross-attention layer has a static index in down→mid→up order (16
     for SD1.5); a 4-D (B, 16, 77, C) context gives each layer its own slice;
   * LoRA is a nested dict mirroring this module tree, threaded to every
@@ -14,7 +13,10 @@ work). ED-LoRA specifics:
   * training asks for the cross-attention probabilities
     (`return_cross_probs`, optionally only the concept columns
     `prob_columns`) for the attention regularizer, and may recompute each
-    transformer in the backward (`remat`).
+    transformer in the backward (`remat`);
+  * gradient fusion asks for the fp32 input Grams of the spatial linears
+    (`capture_grams`: DEFAULT_GRAM_POINTS, ALL_GRAM_POINTS or a tuple of
+    point names), per cross-attention layer index.
 
 Attention routing follows the JAX package's `fuse_attention`:
   * 'packed' (the sampling pipelines): self-attention with >= 1024 keys runs
@@ -39,8 +41,18 @@ from mixofshow_tpu_torch.models.layers import (conv2d, dense, group_norm,
                                                timestep_embedding)
 from mixofshow_tpu_torch.models.lora import maybe
 from mixofshow_tpu_torch.ops.fused_attention import attention_packed
+from mixofshow_tpu_torch.ops.solve import gram
 
 PACKED_MIN_KEYS = 1024  # self-attention at or above this many keys -> K1
+
+# Gram capture points of the fusion's spatial phase, the reference's full
+# candidate list (gradient_fusion.py:637-641): attn1.*, attn2 q/out,
+# ff.net.*, proj_in/proj_out. attn2's k/v inputs are text features, the
+# cross-KV phase's. The ff and proj points only when a delta carries them
+# (ff grams are (4c, 4c)).
+DEFAULT_GRAM_POINTS = ('attn1_qkv', 'attn1_out', 'attn2_q', 'attn2_out')
+ALL_GRAM_POINTS = DEFAULT_GRAM_POINTS + ('ff_in', 'ff_out', 'proj_in',
+                                         'proj_out')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,17 +130,18 @@ class Attention(nn.Module):
 
 def mh_attention(p: Attention, x, context, heads: int, lora=None,
                  alpha: float = 1.0, kv=None, fuse=False,
-                 return_probs: bool = False):
+                 return_probs: bool = False, return_pre_out: bool = False):
     """diffusers `Attention` equivalent; (B, S, C) in and out. `kv` supplies
     precomputed (B, Sk, H, D) key/value projections; `fuse='packed'` routes
-    >= 1024 keys to K1; `return_probs` returns (out, fp32 probabilities)."""
+    >= 1024 keys to K1; `return_probs` returns (out, fp32 probabilities);
+    `return_pre_out` returns (out, the to_out layer's (B, S, C) input)."""
     if fuse not in (False, 'packed'):
         raise ValueError(f"fuse_attention must be False or 'packed', got "
                          f'{fuse!r}')
     b, s, c = x.shape
     d = c // heads
     if fuse == 'packed' and kv is None and not return_probs \
-            and context.shape[1] >= PACKED_MIN_KEYS:
+            and not return_pre_out and context.shape[1] >= PACKED_MIN_KEYS:
         def eff(name):
             w = getattr(p, name).weight
             lw = maybe(lora, name)
@@ -149,8 +162,9 @@ def mh_attention(p: Attention, x, context, heads: int, lora=None,
         out, probs = sdpa(q, k, v, return_probs=True)
         return dense(out.reshape(b, s, c), p.to_out, maybe(lora, 'to_out'),
                      alpha), probs
-    out = sdpa(q, k, v).reshape(b, s, c)
-    return dense(out, p.to_out, maybe(lora, 'to_out'), alpha)
+    pre = sdpa(q, k, v).reshape(b, s, c)
+    out = dense(pre, p.to_out, maybe(lora, 'to_out'), alpha)
+    return (out, pre) if return_pre_out else out
 
 
 class FeedForward(nn.Module):
@@ -159,10 +173,12 @@ class FeedForward(nn.Module):
         self.proj = nn.Linear(c, 8 * c, **kw)   # GEGLU: value and gate
         self.out = nn.Linear(4 * c, c, **kw)
 
-    def forward(self, x, lora=None, alpha=1.0):
+    def forward(self, x, lora=None, alpha=1.0, return_inner: bool = False):
         h, gate = dense(x, self.proj, maybe(lora, 'proj'), alpha).chunk(2, -1)
         # exact (erf) gelu, as diffusers' GEGLU
-        return dense(h * F.gelu(gate), self.out, maybe(lora, 'out'), alpha)
+        inner = h * F.gelu(gate)
+        out = dense(inner, self.out, maybe(lora, 'out'), alpha)
+        return (out, inner) if return_inner else out
 
 
 class Transformer(nn.Module):
@@ -183,23 +199,42 @@ class Transformer(nn.Module):
     def forward(self, x, context, layer_idx: int, heads: int, lora=None,
                 alpha=1.0, cross_kv=None, place: str = 'down',
                 cross_attn_override=None, fuse_attention=False,
-                return_probs: bool = False, prob_columns=None):
-        """Returns (out, cross-attention probabilities or None).
+                return_probs: bool = False, prob_columns=None,
+                gram_points=()):
+        """Returns (out, cross-attention probabilities or None, {point: fp32
+        Gram} for each of `gram_points`).
         `cross_attn_override(attn2, x, ctx, layer_idx, place, (h, w), lora,
         alpha)` replaces the cross-attention when given; `return_probs`
         captures the cross-attention's fp32 probabilities (B, heads, Q, 77),
         gathered to the (B, K) key columns `prob_columns` when given, so
         full maps never stay alive for the backward."""
         b, c, h, w = x.shape
-        hid = conv2d(group_norm(x, self.norm), self.proj_in,
-                     maybe(lora, 'proj_in'), alpha)
-        hid = hid.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        grams = {}
+
+        def tokens(t):  # NCHW -> (B, HW, C), the JAX package's NHWC rows
+            return t.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+        gn_out = group_norm(x, self.norm)
+        if 'proj_in' in gram_points:
+            grams['proj_in'] = gram(tokens(gn_out))
+        hid = tokens(conv2d(gn_out, self.proj_in, maybe(lora, 'proj_in'),
+                            alpha))
         a = layer_norm(hid, self.ln1)
-        hid = hid + mh_attention(self.attn1, a, a, heads,
-                                 maybe(lora, 'attn1'), alpha,
-                                 fuse=fuse_attention)
+        if 'attn1_qkv' in gram_points:
+            grams['attn1_qkv'] = gram(a)
+        if 'attn1_out' in gram_points:
+            sa, pre = mh_attention(self.attn1, a, a, heads,
+                                   maybe(lora, 'attn1'), alpha,
+                                   return_pre_out=True)
+            grams['attn1_out'] = gram(pre)
+        else:
+            sa = mh_attention(self.attn1, a, a, heads, maybe(lora, 'attn1'),
+                              alpha, fuse=fuse_attention)
+        hid = hid + sa
         ctx = context[:, layer_idx] if context.dim() == 4 else context
         a = layer_norm(hid, self.ln2)
+        if 'attn2_q' in gram_points:
+            grams['attn2_q'] = gram(a)
         probs = None
         if cross_attn_override is not None:
             ca = cross_attn_override(self.attn2, a, ctx, layer_idx, place,
@@ -212,15 +247,29 @@ class Transformer(nn.Module):
                 cols = prob_columns[:, None, None, :].expand(
                     *probs.shape[:3], prob_columns.shape[-1])
                 probs = probs.gather(-1, cols)
+        elif 'attn2_out' in gram_points:
+            ca, pre = mh_attention(self.attn2, a, ctx, heads,
+                                   maybe(lora, 'attn2'), alpha, kv=cross_kv,
+                                   return_pre_out=True)
+            grams['attn2_out'] = gram(pre)
         else:
             ca = mh_attention(self.attn2, a, ctx, heads, maybe(lora, 'attn2'),
                               alpha, kv=cross_kv, fuse=fuse_attention)
         hid = hid + ca
-        hid = hid + self.ff(layer_norm(hid, self.ln3), maybe(lora, 'ff'),
-                            alpha)
+        a = layer_norm(hid, self.ln3)
+        if 'ff_in' in gram_points:
+            grams['ff_in'] = gram(a)
+        if 'ff_out' in gram_points:
+            ff, inner = self.ff(a, maybe(lora, 'ff'), alpha, return_inner=True)
+            grams['ff_out'] = gram(inner)
+        else:
+            ff = self.ff(a, maybe(lora, 'ff'), alpha)
+        hid = hid + ff
+        if 'proj_out' in gram_points:
+            grams['proj_out'] = gram(hid)
         hid = hid.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
         out = conv2d(hid, self.proj_out, maybe(lora, 'proj_out'), alpha) + x
-        return out, probs
+        return out, probs, grams
 
 
 class _Block(nn.Module):
@@ -322,20 +371,25 @@ class UNet(nn.Module):
                 lora_alpha: float = 1.0, cross_kv=None,
                 adapter_features=None, cross_attn_override=None,
                 fuse_attention=False, return_cross_probs: bool = False,
-                prob_columns=None, remat: bool = False):
+                prob_columns=None, remat: bool = False,
+                capture_grams=False):
         """Predict noise. sample (B, 4, h, w) NCHW; timesteps (B,) or a
         scalar; encoder_hidden_states (B, 77, C) or layerwise (B, 16, 77, C);
         `cross_kv` from `cross_attention_kv`; `adapter_features` NCHW maps,
         one per down block (T2IAdapter); `cross_attn_override` replaces
         every cross-attention (see Transformer.forward); `fuse_attention`
         False or 'packed' (see the module docstring); `remat` recomputes
-        each transformer in the backward (torch.utils.checkpoint).
+        each transformer in the backward (torch.utils.checkpoint);
+        `capture_grams` True (DEFAULT_GRAM_POINTS) or a tuple of points.
 
-        Returns the prediction, or with `return_cross_probs` (prediction,
-        aux) where aux['cross_probs'] lists (place, layer_idx, probs (B,
-        heads, Q, 77 or K)) in layer order; `prob_columns` (B, K) keeps only
-        those key columns."""
+        Returns the prediction, or with `return_cross_probs` or
+        `capture_grams` (prediction, aux): aux['cross_probs'] lists (place,
+        layer_idx, probs (B, heads, Q, 77 or K)) in layer order
+        (`prob_columns` (B, K) keeps only those key columns);
+        aux['grams'] maps each layer_idx to {point: (F, F) fp32 Gram}."""
         cfg = self.cfg
+        points = DEFAULT_GRAM_POINTS if capture_grams is True \
+            else tuple(capture_grams or ())
         dt = sample.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -348,20 +402,23 @@ class UNet(nn.Module):
         idx = 0
 
         probs_out = []
+        grams_out = {}
 
         def tfm(mod, x, blora, place):
             nonlocal idx
             kv = None if cross_kv is None else cross_kv[idx]
             args = (x, ehs, idx, heads, blora, lora_alpha, kv, place,
                     cross_attn_override, fuse_attention, return_cross_probs,
-                    prob_columns)
+                    prob_columns, points)
             if remat:
-                out, probs = torch.utils.checkpoint.checkpoint(
+                out, probs, grams = torch.utils.checkpoint.checkpoint(
                     mod, *args, use_reentrant=False)
             else:
-                out, probs = mod(*args)
+                out, probs, grams = mod(*args)
             if probs is not None:
                 probs_out.append((place, idx, probs))
+            if grams:
+                grams_out[idx] = grams
             idx += 1
             return out
 
@@ -404,6 +461,9 @@ class UNet(nn.Module):
 
         x = group_norm(x, self.norm_out, act='silu')
         out = conv2d(x, self.conv_out)
+        aux = {}
         if return_cross_probs:
-            return out, {'cross_probs': probs_out}
-        return out
+            aux['cross_probs'] = probs_out
+        if points:
+            aux['grams'] = grams_out
+        return (out, aux) if aux else out

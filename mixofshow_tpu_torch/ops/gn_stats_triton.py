@@ -1,7 +1,8 @@
-"""Triton kernels behind ops.gn_stats.spatial_sums (K2).
+"""Triton kernels behind ops.gn_stats: spatial_sums (K2) and scale_bias_act
+(K8).
 
-Imported only by `spatial_sums` when it is given a CUDA tensor: this module
-imports triton, which only the machine with the card has.
+Imported only by those wrappers when they are given a CUDA tensor: this
+module imports triton, which only the machine with the card has.
 
 Triton caches its compiled kernels under `<repo>/.torch_ext/triton` unless
 TRITON_CACHE_DIR says otherwise, so the port writes nothing outside its
@@ -10,6 +11,16 @@ checkout.
 Pass 1 (`_partial_kernel`): program (b, channel block, H×W slice) reduces a
 [BLOCK_C, BLOCK_HW] tile at a time into fp32 Σx, Σx², one partial per slice.
 Pass 2 (`_finish_kernel`): sums the slices' partials in a fixed order.
+
+K8 (`_apply_kernel`): program (plane b·C + c, block of H×W) loads that
+plane's a and b once as scalars, then BLOCK elements of x with one vector
+load (contiguous along H×W in NCHW), and stores act(x·a + b) at the same
+strides. a and b are cast to x's dtype first (JAX gn_stats.py:107-109);
+x·a and then + b each round to x's dtype, as the TPU kernel's two
+activation-dtype operations and the plain twin do; the SiLU is fp32, then
+cast (:110-114). In bf16 those roundings are integer arithmetic on the fp32
+bits (`_round_bf16`): Triton folds a bf16 cast followed by an fp32 cast into
+nothing, which would leave one rounding where the twin has two.
 """
 from __future__ import annotations
 
@@ -100,3 +111,56 @@ def launch(x: torch.Tensor):
         _finish_kernel[(bsz, triton.cdiv(c, 128))](
             part, s, q, c, n_split, BLOCK_C=128, num_warps=4)
     return s, q
+
+
+@triton.jit
+def _round_bf16(y):
+    """fp32 -> the nearest bf16 value, ties to even, kept in fp32."""
+    u = y.to(tl.uint32, bitcast=True)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.to(tl.float32, bitcast=True)
+
+
+@triton.jit
+def _apply_kernel(x_ptr, a_ptr, b_ptr, o_ptr, C, HW,
+                  stride_b, stride_c, stride_hw,
+                  SILU: tl.constexpr, BF16: tl.constexpr,
+                  BLOCK: tl.constexpr):
+    plane = tl.program_id(0)
+    offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < HW
+    a = tl.load(a_ptr + plane)
+    b = tl.load(b_ptr + plane)
+    base = (plane // C) * stride_b + (plane % C) * stride_c
+    x = tl.load(x_ptr + base + offs * stride_hw, mask=mask,
+                other=0.0).to(tl.float32)
+    if BF16:
+        y = _round_bf16(_round_bf16(x * _round_bf16(a)) + _round_bf16(b))
+    else:
+        y = x * a + b
+    if SILU:
+        y = y * tl.sigmoid(y)
+    tl.store(o_ptr + base + offs * stride_hw,
+             y.to(o_ptr.dtype.element_ty), mask=mask)
+
+
+APPLY_BLOCK = 1024
+
+
+def launch_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 silu: bool):
+    """act(x·a + b) of a (B, C, H, W) fp32 or bf16 CUDA tensor with
+    flattenable H, W and (B, C) fp32 a, b; the output has x's strides."""
+    bsz, c, h, w = x.shape
+    hw = h * w
+    stride_hw = x.stride(3) if w > 1 else x.stride(2)
+    out = torch.empty_like(x)
+    if out.stride() != x.stride():
+        raise ValueError(f'cannot mirror the strides {x.stride()}')
+    a, b = a.contiguous(), b.contiguous()
+    with torch.cuda.device(x.device):
+        _apply_kernel[(bsz * c, triton.cdiv(hw, APPLY_BLOCK))](
+            x, a, b, out, c, hw, x.stride(0), x.stride(1), stride_hw,
+            SILU=silu, BF16=x.dtype == torch.bfloat16, BLOCK=APPLY_BLOCK,
+            num_warps=4)
+    return out

@@ -8,10 +8,12 @@
   keeps fp32 latents, as the reference's sampling scan does.
 * `exact_fp32` turns TF32 off for matmuls and cuDNN convolutions: an fp32
   reference run on the card must not round to TF32's 10-bit mantissa
-  (cuDNN convolutions use TF32 by default).
+  (cuDNN convolutions use TF32 by default). `fp32_matmuls` does the same
+  for the length of a block and restores what was set (gradient fusion).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -41,3 +43,22 @@ def exact_fp32() -> None:
     """Disable TF32 for matmuls and cuDNN convolutions (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """Full fp32 matmuls and convolutions inside the block, whatever the
+    process has set, restored after it: the fusion's grams, G @ ΔW products
+    and eigh inputs must not round to TF32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])

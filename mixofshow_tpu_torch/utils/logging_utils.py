@@ -17,6 +17,7 @@ import time
 from typing import Dict, Optional
 
 initialized_loggers = set()
+LOG_FORMAT = '%(asctime)s %(levelname)s: %(message)s'
 
 
 def mkdir_and_rename(path: str):
@@ -49,15 +50,14 @@ def set_logger(name: str, log_file: Optional[str] = None,
     logger = logging.getLogger(name)
     if name in initialized_loggers:
         return logger
-    fmt = '%(asctime)s %(levelname)s: %(message)s'
     sh = logging.StreamHandler()
-    sh.setFormatter(logging.Formatter(fmt))
+    sh.setFormatter(logging.Formatter(LOG_FORMAT))
     logger.addHandler(sh)
     logger.setLevel(level)
     logger.propagate = False
     if log_file is not None:
         fh = logging.FileHandler(log_file, 'w')
-        fh.setFormatter(logging.Formatter(fmt))
+        fh.setFormatter(logging.Formatter(LOG_FORMAT))
         logger.addHandler(fh)
     initialized_loggers.add(name)
     return logger

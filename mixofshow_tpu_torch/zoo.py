@@ -1,10 +1,13 @@
-"""Model bundles (port of mixofshow_tpu/zoo.py, random-init forms only).
+"""Model bundles (port of mixofshow_tpu/zoo.py).
 
-`pretrained_path` forms in this slice:
+`pretrained_path` forms:
+  a directory — a diffusers-layout SD1.x checkpoint
+  (convert/diffusers_import.py); a fused one's extra token rows get their
+  `<newN>` tokens in order, as regionally_controlable_sampling.py:55-72
+  adds them;
   random:sd15 | random:tiny — random init at that size, on an explicit
   device, from a seeded torch.Generator on that device.
 `load_t2i_adapter` makes random keypose or sketch adapters the same way.
-Checkpoint directories arrive in a later slice.
 
 Random weights from the same seed differ between this package and the JAX
 package (torch.Generator vs numpy); parity tests carry the JAX weights
@@ -13,9 +16,11 @@ across with convert.load_jax_params instead.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
+from mixofshow_tpu_torch.convert.diffusers_import import load_pipeline_params
 from mixofshow_tpu_torch.models import (AutoencoderKL, CLIPTextConfig,
                                         CLIPTextModel, UNet, UNetConfig,
                                         VAEConfig)
@@ -44,15 +49,26 @@ def tiny_configs():
 
 def load_models(pretrained_path: str, device, seed: int = 0,
                 dtype=torch.float32) -> ModelBundle:
-    """Random-init bundle: 'random:sd15' or 'random:tiny'. UNet, text encoder
-    and VAE draw from generators seeded seed, seed+1, seed+2 on `device`
-    (fp32 draws, cast to `dtype`)."""
+    """A checkpoint directory, or a random-init bundle ('random:sd15' or
+    'random:tiny': UNet, text encoder and VAE draw from generators seeded
+    seed, seed+1, seed+2 on `device`, fp32 draws cast to `dtype`)."""
     dev = as_device(device)
+    if pretrained_path and os.path.isdir(pretrained_path):
+        out = load_pipeline_params(pretrained_path, dev, dtype)
+        missing = {'unet', 'vae', 'text_encoder'} - set(out)
+        if missing:
+            raise FileNotFoundError(
+                f'checkpoint dir {pretrained_path} lacks {sorted(missing)}')
+        tok = CLIPTokenizer(pretrained_path)
+        n_new = out['text_encoder'].cfg.vocab_size - tok.vocab_size
+        tok.add_tokens([f'<new{i}>' for i in range(n_new)])
+        return ModelBundle(out['unet'], out['text_encoder'], out['vae'], tok)
     size = pretrained_path.split(':')[-1] if pretrained_path else ''
     if not pretrained_path.startswith('random:') or size not in ('sd15',
                                                                  'tiny'):
         raise ValueError(f'unsupported pretrained_path {pretrained_path!r}: '
-                         'this slice supports random:sd15 and random:tiny')
+                         'a checkpoint directory, random:sd15 or '
+                         'random:tiny')
     ucfg, ccfg, vcfg = tiny_configs() if size == 'tiny' else (
         UNetConfig.sd15(), CLIPTextConfig.sd15(), VAEConfig.sd15())
 

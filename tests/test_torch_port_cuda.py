@@ -396,3 +396,58 @@ def test_unet_gradient_reaches_every_attn1_lora_on_the_card(dev):
         for g, c in zip(grads[0][p], grads[1][p]):
             assert torch.isfinite(g).all() and g.abs().max() > 0, p
             assert (g - c).abs().max().item() <= 1e-3 * scale, p
+
+
+# bf16: one bf16 ulp at the top binade of the twin (2^-7 of max|twin|; both
+# round x·a and + b to bf16, the SiLU's fp32 exp may differ by an ulp).
+# fp32: 1e-6 of max|twin| (an FMA and the SiLU's exp in another order)
+APPLY_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('act', ['none', 'silu'])
+@pytest.mark.parametrize('shape,channels_last', [
+    ((2, 512, 64, 64), False), ((3, 24, 7, 5), False),
+    ((1, 130, 33, 1), False), ((2, 32, 9, 10), True)])
+def test_scale_bias_act_matches_plain(dev, dtype, act, shape,
+                                      channels_last):
+    x = _randn(dev, *shape, dtype=dtype, seed=1)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    a = _randn(dev, *shape[:2], dtype=torch.float32, seed=2) * 0.2 + 1.0
+    b = _randn(dev, *shape[:2], dtype=torch.float32, seed=3) * 0.2
+    before = gs.scale_bias_act.launches
+    out = gs.scale_bias_act(x, a, b, act)
+    torch.cuda.synchronize()
+    assert gs.scale_bias_act.launches == before + 1
+    ref = gs.scale_bias_act_plain(x, a, b, act)
+    assert out.dtype == dtype and out.stride() == x.stride()
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= APPLY_TOL[dtype]
+
+
+def test_scale_bias_act_backward_matches_autograd_of_plain(dev):
+    """fp32: the kernel's forward with the plain backward against autograd
+    of the plain version."""
+    x = _randn(dev, 2, 64, 16, 16, dtype=torch.float32, seed=4)
+    a = (_randn(dev, 2, 64, dtype=torch.float32, seed=5) * 0.2 + 1.0)
+    b = _randn(dev, 2, 64, dtype=torch.float32, seed=6) * 0.2
+    w = _randn(dev, 2, 64, 16, 16, dtype=torch.float32, seed=7)
+    grads = []
+    for fn in (gs.scale_bias_act, gs.scale_bias_act_plain):
+        ts = [t.clone().requires_grad_() for t in (x, a, b)]
+        (fn(*ts, 'silu') * w).sum().backward()
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_vae_decode_launches_k8_per_group_norm(dev):
+    b = zoo.load_models('random:tiny', dev, seed=0)
+    norms = sum(isinstance(m, torch.nn.GroupNorm)
+                for m in b.vae.decoder.modules())
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        b.vae.decode(_randn(dev, 1, 4, 8, 8, dtype=torch.float32))
+    counts = ops.launch_counts()
+    assert counts['gn_apply'] == counts['gn_spatial_sums'] == norms

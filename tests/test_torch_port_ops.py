@@ -5,6 +5,7 @@ that guard the CUDA launches. The kernels themselves run on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py)."""
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch.utils.cpp_extension as cpp
 from mixofshow_tpu.ops import fused_attention as jfa
 from mixofshow_tpu.ops import gn_stats as jgn
 from mixofshow_tpu_torch import ops
+from mixofshow_tpu_torch.models import layers
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import fused_attention as pfa
 from mixofshow_tpu_torch.ops import gn_stats as pgn
@@ -84,6 +86,54 @@ def test_spatial_sums_matches_jax(shape):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize('act', ['none', 'silu'])
+def test_scale_bias_act_matches_jax(act):
+    """K8's twin and its backward against JAX `scale_bias_act` (Pallas in
+    interpret mode) and `jax.grad` of it, NHWC there, NCHW here: forward
+    1e-5, gradients 1e-4 (tests/test_ops.py's bounds)."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(0, 1, (2, 16, 8, 128)).astype(np.float32)
+    a = rng.normal(1, 0.2, (2, 128)).astype(np.float32)
+    b = rng.normal(0, 0.2, (2, 128)).astype(np.float32)
+    w = rng.normal(0, 1, x.shape).astype(np.float32)
+
+    def jloss(*t):
+        return (jgn.scale_bias_act(*t, act) * w).sum()
+
+    want = np.asarray(jgn.scale_bias_act(jnp.asarray(x), a, b, act))
+    wgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), a, b)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    at, bt = (torch.from_numpy(t).requires_grad_() for t in (a, b))
+    before = pgn.scale_bias_act.launches
+    out = pgn.scale_bias_act(xt, at, bt, act)
+    (out * torch.from_numpy(w).permute(0, 3, 1, 2)).sum().backward()
+    assert pgn.scale_bias_act.launches == before
+    np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+    for got, ref in ((xt.grad.permute(0, 2, 3, 1), wgrads[0]),
+                     (at.grad, wgrads[1]), (bt.grad, wgrads[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_group_norm_kernel_route_matches_plain_route():
+    """The VAE's route (K2 sums, K8 apply) and the UNet's plain route give
+    one GroupNorm on the CPU: fp32, the same sums in another order."""
+    x = torch.randn(2, 16, 6, 5, generator=torch.Generator().manual_seed(2))
+    norm = torch.nn.GroupNorm(4, 16)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5)
+        norm.bias.uniform_(-0.5, 0.5)
+    for act in (None, 'silu'):
+        torch.testing.assert_close(
+            layers.group_norm(x, norm, act, stats='kernel'),
+            layers.group_norm(x, norm, act), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match='act must be one of'):
+        pgn.scale_bias_act(x, torch.ones(2, 16), torch.zeros(2, 16), 'gelu')
+    with pytest.raises(TypeError, match='fp32'):
+        pgn.scale_bias_act(x, torch.ones(2, 16).double(), torch.zeros(2, 16))
+
+
 def test_attn_fwd_plain_masks_keys_past_kv_len():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 33, 3, 24, generator=g) for _ in range(3))
@@ -113,6 +163,10 @@ def test_cuda_launch_checks_raise_before_launch():
         pfa.attn_fwd(q, q.to('meta'), q)
     with pytest.raises(ValueError, match='unsupported device'):
         pgn.spatial_sums(torch.zeros(1, 2, 4, 6, device='meta'))
+    m = torch.zeros(1, 2, 4, 6, device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        pgn.scale_bias_act(m, torch.zeros(1, 2, device='meta'),
+                           torch.zeros(1, 2, device='meta'))
 
 
 def test_launch_registry():
@@ -120,9 +174,12 @@ def test_launch_registry():
     assert ops.launch_counts() == {'attn_fwd': 0, 'gn_spatial_sums': 0,
                                    'attn_block': 0, 'region_attn': 0,
                                    'flash_fwd': 0, 'flash_bwd_dkv': 0,
-                                   'flash_bwd_dq': 0}
+                                   'flash_bwd_dq': 0, 'gn_apply': 0}
     pgn.spatial_sums(torch.ones(1, 4, 2, 2))
+    pgn.scale_bias_act(torch.ones(1, 4, 2, 2), torch.ones(1, 4),
+                       torch.zeros(1, 4), 'silu')
     assert ops.launch_counts()['gn_spatial_sums'] == 0
+    assert ops.launch_counts()['gn_apply'] == 0
 
 
 def test_build_needs_nvcc_and_keys_the_library_on_its_sources(monkeypatch):
