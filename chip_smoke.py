@@ -16,7 +16,9 @@ line when any fails, or when no CUDA device is visible):
                 could take (bound_ms: bytes over 3.35 TB/s or operations
                 over their peak rate, whichever is longer) and, where one
                 PyTorch call computes the same function, that call's time
-                (library_ms); the flash kernels (K4-K6) also in fp32 against
+                (library_ms), K3 also by its three launches (the grouped
+                q/k/v GEMM, the wide core, the out-projection); the
+                flash kernels (K4-K6) also in fp32 against
                 autograd of the plain attention, a backward rerun that must
                 be bit-identical, and a planted fault (the plain backward
                 without Dvec) that must come out over the bf16 bound; K8 at
@@ -170,7 +172,7 @@ KERNEL_META = {
                  'mixofshow_tpu/ops/fused_attention.py:248'),
     'gn_spatial_sums': ('triton', 'mixofshow_tpu_torch/ops/gn_stats_triton.py',
                         'mixofshow_tpu/ops/gn_stats.py:29'),
-    'attn_block': ('cuda', 'mixofshow_tpu_torch/csrc/gemm_bias.cu',
+    'attn_block': ('cuda', 'mixofshow_tpu_torch/csrc/attn_wide.cu',
                    'mixofshow_tpu/ops/fused_attention.py:63'),
     'region_attn': ('cuda', 'mixofshow_tpu_torch/csrc/region_attn.cu',
                     'mixofshow_tpu/ops/region_attention.py:66'),
@@ -281,7 +283,8 @@ def phase_build(dev):
             gs.scale_bias_act(x, ab, ab, act)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    print(f'[build] nvcc K1 K3 K4-K7 library: {t_cuda:.2f} s '
+    print(f'[build] nvcc K1 K3 K4-K7 library (one nvcc per csrc source, '
+          f'in parallel): {t_cuda:.2f} s '
           f'({_build.library_path().name}); Triton K2 + K8 JIT (bf16+fp32, '
           f'K8 with and without SiLU): {t_triton:.2f} s', flush=True)
 
@@ -309,11 +312,12 @@ def phase_kernels(dev):
         pms = cuda_ms(lambda: fa.attn_fwd_plain(q, k, v, kvl))
         bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], out),
                     attn_flops(b, h, s, kvl, d, 2), PEAK_BF16)
-        lib = sdpa_ms(q, k, v) if kvl == sk else None
+        # a ragged kv_len: SDPA over the first kv_len keys
+        lib = sdpa_ms(q, k[:, :kvl], v[:, :kvl])
         print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
               f'kv_len={kvl}: max_abs_err {err:.3e} (bound {ATTN_BOUND}); '
               f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
-              f'ms ({bnd[1]}), SDPA {lib} ms', flush=True)
+              f'ms ({bnd[1]}), SDPA {lib:.4f} ms', flush=True)
         check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_fwd disagrees')
         res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
     # K2 at the VAE decoder's GroupNorm inputs (2 images): NHWC
@@ -358,10 +362,22 @@ def phase_kernels(dev):
                 4 * 2 * 2 * 4096 * c * c + attn_flops(2, 1, 4096, 4096, c, 2),
                 PEAK_BF16)
     lib = cuda_ms(library)
+    # its three launches apart: the grouped q/k/v GEMM, the core, the
+    # out-projection
+    x2 = x.view(-1, c)
+    qkv = [(x2, w[i], bias[i], c ** -0.5 if i == 0 else 1.0)
+           for i in range(3)]
+    q, k, v = (t.view(2, 4096, 1, c) for t in fa._gemm_grouped(qkv))
+    o = torch.empty_like(q)
+    parts = {'q/k/v GEMM': cuda_ms(lambda: fa._gemm_grouped(qkv)),
+             'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, 4096, 1.0)),
+             'out GEMM': cuda_ms(lambda: fa._gemm_grouped(
+                 [(o.view(-1, c), w[3], bias[3], 1.0)]))}
     print(f'[kernels] attn_block (B,S,C)=(2,4096,512) heads=1 with biases: '
-          f'max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel {ms:.4f} ms, '
-          f'plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), four '
-          f'F.linear + SDPA {lib:.4f} ms', flush=True)
+          f'max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel {ms:.4f} ms ('
+          + ', '.join(f'{n} {t:.4f}' for n, t in parts.items())
+          + f' ms), plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
+          f'four F.linear + SDPA {lib:.4f} ms', flush=True)
     check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_block disagrees')
     res['attn_block'] = row(err, ms, pms, bnd, lib)
     # K7 at the regional path's cross-attention layers: 2 images x CFG,
@@ -560,17 +576,18 @@ def flash_kernel_checks(dev):
                     attn_flops(b, h, sq, sk, d, 3), peak)}
         line += '; least ' + ', '.join(
             f'{n} {t[0]:.4f} ms ({t[1]})' for n, t in bnds.items())
-        if not res:   # the first (main-path) shape: SDPA's times
-            qa, ka, va = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            sdpa_out = F.scaled_dot_product_attention(qa, ka, va)
-            do_t = do.transpose(1, 2)
-            libs = {'flash_fwd': sdpa_ms(q, k, v)}
-            libs['flash_bwd_dkv'] = libs['flash_bwd_dq'] = cuda_ms(
-                lambda: torch.autograd.grad(sdpa_out, (qa, ka, va), do_t,
-                                            retain_graph=True))
-            line += f'; SDPA forward {libs["flash_fwd"]:.4f} ms, SDPA ' \
-                f'backward (dq, dk, dv) {libs["flash_bwd_dq"]:.4f} ms'
+        # SDPA's forward and its backward (dq, dk and dv in one call)
+        qa, ka, va = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qa, ka, va)
+        do_t = do.transpose(1, 2)
+        libs = {'flash_fwd': sdpa_ms(q, k, v)}
+        libs['flash_bwd_dkv'] = libs['flash_bwd_dq'] = cuda_ms(
+            lambda: torch.autograd.grad(sdpa_out, (qa, ka, va), do_t,
+                                        retain_graph=True))
+        line += f'; SDPA forward {libs["flash_fwd"]:.4f} ms, SDPA ' \
+            f'backward (dq, dk, dv) {libs["flash_bwd_dq"]:.4f} ms'
+        if not res:   # the first (main-path) shape
             for name in bnds:
                 res[name] = row(abs_errs[name], *times[name], bnds[name],
                                 libs[name])

@@ -30,11 +30,21 @@
 //     owns 16 query rows. S = Q Kᵀ and O += P V run on mma.sync m16n8k16
 //     with fp32 accumulators; the row max/sum live in registers (fp32) and
 //     P is rounded to bf16 only as the A operand of the value product.
-//     O stays in registers for D <= 128; for wider heads (the VAE's single
-//     512-wide head) it lives in shared memory in fragment order.
+//     O stays in registers for D <= 128; at D = 160 it lives in shared
+//     memory in fragment order. Wider bf16 heads (to 512: the VAE's single
+//     head) go to attn_wide.cu, a wgmma core that splits the head over two
+//     warpgroups.
 //   * fp32: a SIMT kernel (one warp per query row, 32 keys per tile) that
 //     computes everything in fp32, for fp32 reference runs on the card.
 #include "mma.cuh"
+
+// the wgmma core for D in (160, 512], bf16 (attn_wide.cu)
+extern "C" int mos_attn_wide(const void* q, const void* k, const void* v,
+                             void* o, int B, int Sq, int Sk, int H, int D,
+                             int kv_len, long long q_sb, long long q_ss,
+                             long long k_sb, long long k_ss, long long v_sb,
+                             long long v_ss, long long o_sb, long long o_ss,
+                             float scale, void* stream);
 
 namespace {
 
@@ -356,7 +366,7 @@ int launch_f32(const AttnParams& p, cudaStream_t stream) {
 }
 
 // bf16 tiles by head width; the flash route stops at D = 160 (SD1.x's
-// widest head), K1 goes on to the VAE's single 512-wide head
+// widest head), K1 hands wider heads (to 512) to attn_wide.cu's core
 template <bool FLASH>
 int dispatch(const AttnParams& p, int dtype, cudaStream_t st) {
   const int D = p.D;
@@ -373,8 +383,9 @@ int dispatch(const AttnParams& p, int dtype, cudaStream_t st) {
   if constexpr (FLASH) {
     return -1;
   } else {
-    if (D <= 256) return launch_bf16<256, 4, 32, true, false>(p, st);
-    return launch_bf16<512, 2, 32, true, false>(p, st);
+    return mos_attn_wide(p.q, p.k, p.v, p.o, p.B, p.Sq, p.Sk, p.H, D,
+                         p.kv_len, p.q_sb, p.q_ss, p.k_sb, p.k_ss, p.v_sb,
+                         p.v_ss, p.o_sb, p.o_ss, p.scale, st);
   }
 }
 

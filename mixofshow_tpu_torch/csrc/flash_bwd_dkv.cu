@@ -11,25 +11,32 @@
 // query rows >= Sq load as zeros with lse = +inf, so they add nothing.
 //
 // The TPU grid carried dK/dV accumulators across sequential query-chunk grid
-// steps in VMEM. Here one block owns (batch, head, 64 keys) and streams the
+// steps in VMEM. Here one block owns (batch, head, 128 keys) and streams the
 // query tiles in a loop, with its accumulators in registers: every output
 // element has exactly one writer, no atomics, so reruns are bit-identical.
 //
-// What bounds it on the card: four products of 2·BQ·64·D flops per tile;
-// this first version reads its tiles with scalar loads and no copy/compute
-// overlap, so it is latency bound, not tensor-core bound.
+// What bounds it on the card: four products of 2·Sq·Sk·D flops a head, 85.9
+// GFLOP at the training path's (2, 4096, 8, 40) (87 µs at the bf16 peak),
+// tensor-core bound; at D = 40 every product is thin (depth or width 40),
+// so the loads and the softmax-like elementwise work between the products
+// weigh as much as the products themselves.
 //
-// Design:
-//   * bf16: 4 warps, a warp owns 16 keys and forms Sᵀ = K·Q̃ᵀ and
-//     dPᵀ = V·dOᵀ (16 × BQ) on mma.sync m16n8k16 with fp32 accumulators.
-//     Their C-fragment layout is already the A-fragment layout of
-//     dV += Pᵀ·dO and dK += dSᵀ·Q̃, so P and dS never leave registers (K1's
-//     trick for P). K and V rows are read as A fragments from shared memory;
-//     the query tile is held twice, row-major (B operand of the first two
-//     products) and transposed (B operand of the last two).
+// Design (bf16): two warpgroups, 64 keys each; K and V of the block's 128
+// keys stay resident in shared memory, the head padded to DP (a multiple of
+// 16) only there. Q and dO tiles of BQ queries (32 for D <= 48 and D > 96,
+// else 64) and their LSE and Dvec stream through a 3-stage ring of cp.async
+// 16 B copies, two tiles in flight. Every tile is held once, in
+// 32B-swizzled panels of 16 columns (wgmma.cuh): Sᵀ = K·Q̃ᵀ and dPᵀ = V·dOᵀ
+// read the Q̃ and dO tiles K-major (wgmma.m64nBQk16, K and V as the A
+// operand from shared memory), and dV += Pᵀ·dO and dK += dSᵀ·Q̃ read the
+// same tiles transposed through the descriptor, with Pᵀ and dSᵀ in
+// registers as the A operand (their accumulator layout is the A fragment
+// layout), N = DP. The scale is folded into each landed Q tile in place,
+// q̃ = bf16(q·scale) as on the TPU, before a proxy fence hands the tile to
+// wgmma. dK and dV go out through shared memory with 16 B stores.
 //   * fp32: a SIMT kernel (one warp per key, 32 queries per tile, one per
 //     lane) that computes everything in fp32, for fp32 reference runs.
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -50,34 +57,48 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kBig = 1e30f;  // lse of a padded query row: exp2(-kBig) == 0
 
 // ------------------------------------------------------------------- bf16
-template <int DP, int BQ>
-__global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
+constexpr int kBK = 128;     // keys per block: 64 per warpgroup
+constexpr int kStages = 3;   // query tiles in flight
+
+// One 16 B chunk (4 floats) of a per-query row (lse, Dvec): the first
+// `valid` from `src`, `fill` after them.
+__device__ __forceinline__ void load_f4(float* dst, const float* src,
+                                        int valid, float fill) {
+  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    mos::sm90::cp_async16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = e < valid ? src[e] : fill;
+}
+
+template <int DP, int BQ, int MINB>
+__global__ void __launch_bounds__(256, MINB) dkv_bf16_kernel(BwdParams p) {
+  using namespace mos::sm90;
   using bf16 = __nv_bfloat16;
-  constexpr int NW = 4;
-  constexpr int BK = 16 * NW;      // keys per block
-  constexpr int RS = DP + 8;       // row stride of row-major tiles
-  constexpr int TS = BQ + 8;       // row stride of transposed tiles
-  constexpr int NT = BQ / 8;       // n-tiles of Sᵀ / dPᵀ (queries)
-  constexpr int NO = DP / 8;       // n-tiles of dK / dV (head columns)
-  constexpr int NTHREADS = NW * 32;
+  constexpr int NP = DP / 16;          // 32B-swizzled panels of 16 columns
+  constexpr int CH = DP / 8;           // 16 B chunks a row
+  constexpr int KV_ELEMS = kBK * DP;   // K (and V), resident
+  constexpr int T_ELEMS = BQ * DP;     // one Q̃ (or dO) tile
+  constexpr int STAGE = 2 * T_ELEMS * 2 + 2 * BQ * 4;  // bytes a stage
+  constexpr int YS = DP + 8;           // epilogue row stride
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * RS;
-  bf16* Qs = Vs + BK * RS;
-  bf16* dOs = Qs + BQ * RS;
-  bf16* Qt = dOs + BQ * RS;
-  bf16* dOt = Qt + DP * TS;
-  float* lse2 = reinterpret_cast<float*>(dOt + DP * TS);
-  float* dvs = lse2 + BQ;
+  bf16* Vs = Ks + KV_ELEMS;
+  unsigned char* stages = smem_raw + 2 * KV_ELEMS * 2;
+  auto q_tile = [&](int s) {
+    return reinterpret_cast<bf16*>(stages + s * STAGE);
+  };
+  auto lse_row = [&](int s) {
+    return reinterpret_cast<float*>(stages + s * STAGE + 2 * T_ELEMS * 2);
+  };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const int warp = lt / 32, lane = lt % 32, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
   const int D = p.D, H = p.H;
   const long long tok = (long long)H * D;  // token stride
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.Sq * tok + h * D;
   const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.Sq * tok + h * D;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.Sk * tok + h * D;
@@ -85,143 +106,172 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
   const float* lg = p.lse + ((long long)b * H + h) * p.Sq;
   const float* dg = p.dvec + ((long long)b * H + h) * p.Sq;
 
-  for (int i = tid; i < BK * DP; i += NTHREADS) {
-    const int r = i / DP, c = i % DP;
-    const bool ok = k0 + r < p.Sk && c < D;
-    Ks[r * RS + c] = ok ? kg[(k0 + r) * tok + c] : zero;
-    Vs[r * RS + c] = ok ? vg[(k0 + r) * tok + c] : zero;
+  // chunk cc of row r: panel cc / 2, chunk cc % 2 in it
+  for (int ci = tid; ci < kBK * CH; ci += 256) {
+    const int r = ci / CH, cc = ci % CH;
+    const int off = (cc / 2) * kBK * 16 + sw32(r, cc % 2);
+    const int valid = k0 + r < p.Sk ? D - cc * 8 : 0;
+    load_chunk(Ks + off, kg + (k0 + r) * tok + cc * 8, valid);
+    load_chunk(Vs + off, vg + (k0 + r) * tok + cc * 8, valid);
   }
-
-  float dk[NO][4], dv[NO][4];
+  auto load_q = [&](int s, int qt) {
+    const int q0 = qt * BQ;
+    bf16* qs = q_tile(s);
+    bf16* ds = qs + T_ELEMS;
+    for (int ci = tid; ci < BQ * CH; ci += 256) {
+      const int r = ci / CH, cc = ci % CH;
+      const int off = (cc / 2) * BQ * 16 + sw32(r, cc % 2);
+      const int valid = q0 + r < p.Sq ? D - cc * 8 : 0;
+      load_chunk(qs + off, qg + (q0 + r) * tok + cc * 8, valid);
+      load_chunk(ds + off, dog + (q0 + r) * tok + cc * 8, valid);
+    }
+    float* ls = lse_row(s);
+    for (int ci = tid; ci < BQ / 2; ci += 256) {  // lse, then Dvec
+      const int i = (ci % (BQ / 4)) * 4;
+      if (ci < BQ / 4)
+        load_f4(ls + i, lg + q0 + i, p.Sq - q0 - i, kBig);
+      else
+        load_f4(ls + BQ + i, dg + q0 + i, p.Sq - q0 - i, 0.f);
+    }
+  };
+  // q̃ = bf16(q · scale), in place, on the chunks this thread copied
+  auto scale_q = [&](int s) {
+    bf16* qs = q_tile(s);
+    for (int ci = tid; ci < BQ * CH; ci += 256) {
+      const int r = ci / CH, cc = ci % CH;
+      uint4* c = reinterpret_cast<uint4*>(qs + (cc / 2) * BQ * 16 +
+                                          sw32(r, cc % 2));
+      uint4 v = *c;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const bf16* kr0 = Ks + (warp * 16 + g) * RS + 2 * t;
-  const bf16* kr1 = kr0 + 8 * RS;
-  const bf16* vr0 = Vs + (warp * 16 + g) * RS + 2 * t;
-  const bf16* vr1 = vr0 + 8 * RS;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(e[i]);
+        e[i] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
+      }
+      *c = v;
+    }
+  };
 
   const int n_tiles = (p.Sq + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    for (int i = tid; i < BQ * DP; i += NTHREADS) {
-      const int r = i / DP, c = i % DP;
-      const bool ok = q0 + r < p.Sq && c < D;
-      const bf16 qv = ok ? __float2bfloat16_rn(
-                               __bfloat162float(qg[(q0 + r) * tok + c]) *
-                               p.scale)
-                         : zero;
-      const bf16 dov = ok ? dog[(q0 + r) * tok + c] : zero;
-      Qs[r * RS + c] = qv;
-      Qt[c * TS + r] = qv;
-      dOs[r * RS + c] = dov;
-      dOt[c * TS + r] = dov;
-    }
-    for (int i = tid; i < BQ; i += NTHREADS) {
-      const bool ok = q0 + i < p.Sq;
-      lse2[i] = ok ? lg[q0 + i] * kLog2e : kBig;
-      dvs[i] = ok ? dg[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // Sᵀ = K Q̃ᵀ and dPᵀ = V dOᵀ, 16 keys × BQ queries per warp
-    float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const uint32_t ak[4] = {mos::ld_u32(kr0 + ks * 16),
-                              mos::ld_u32(kr1 + ks * 16),
-                              mos::ld_u32(kr0 + ks * 16 + 8),
-                              mos::ld_u32(kr1 + ks * 16 + 8)};
-      const uint32_t av[4] = {mos::ld_u32(vr0 + ks * 16),
-                              mos::ld_u32(vr1 + ks * 16),
-                              mos::ld_u32(vr0 + ks * 16 + 8),
-                              mos::ld_u32(vr1 + ks * 16 + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* qr = Qs + (nt * 8 + g) * RS + ks * 16 + 2 * t;
-        const bf16* dr = dOs + (nt * 8 + g) * RS + ks * 16 + 2 * t;
-        mos::mma_bf16_16x8x16(st[nt], ak, mos::ld_u32(qr),
-                              mos::ld_u32(qr + 8));
-        mos::mma_bf16_16x8x16(dpt[nt], av, mos::ld_u32(dr),
-                              mos::ld_u32(dr + 8));
-      }
-    }
-
-    // P and dS in place: element e of n-tile nt is (key0 or key1, query
-    // nt*8 + 2t + (e & 1))
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        const bool live = (e < 2 ? key0 : key1) < p.Sk;
-        const float pv = live ? exp2f(st[nt][e] * kLog2e - lse2[qc]) : 0.f;
-        st[nt][e] = pv;
-        dpt[nt][e] = pv * (dpt[nt][e] - dvs[qc]);
-      }
-
-    // the C layout of two adjacent n-tiles is the A layout of 16 queries
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {mos::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              mos::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              mos::pack_bf16(st[2 * kk + 1][0],
-                                             st[2 * kk + 1][1]),
-                              mos::pack_bf16(st[2 * kk + 1][2],
-                                             st[2 * kk + 1][3])};
-      const uint32_t da[4] = {mos::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              mos::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              mos::pack_bf16(dpt[2 * kk + 1][0],
-                                             dpt[2 * kk + 1][1]),
-                              mos::pack_bf16(dpt[2 * kk + 1][2],
-                                             dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const bf16* dr = dOt + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        const bf16* qr = Qt + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mos::mma_bf16_16x8x16(dv[j], pa, mos::ld_u32(dr),
-                              mos::ld_u32(dr + 8));
-        mos::mma_bf16_16x8x16(dk[j], da, mos::ld_u32(qr),
-                              mos::ld_u32(qr + 8));
-      }
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_q(s, s);
+    cp_async_commit();
   }
 
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  const bf16* ka = Ks + wg * 64 * 16;  // this warpgroup's 64 keys
+  const bf16* va = Vs + wg * 64 * 16;
+  const int key0 = k0 + wg * 64 + warp * 16 + g, key1 = key0 + 8;
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int s = qt % kStages;
+    cp_async_wait<kStages - 2>();
+    scale_q(s);
+    fence_proxy_async();
+    __syncthreads();
+    // the stage read in step qt-1 is free: every thread has waited on its
+    // products before the barrier
+    if (qt + kStages - 1 < n_tiles)
+      load_q((qt + kStages - 1) % kStages, qt + kStages - 1);
+    cp_async_commit();
+
+    const bf16* qs = q_tile(s);
+    const bf16* ds = qs + T_ELEMS;
+    const float* ls = lse_row(s);
+    // Sᵀ = K Q̃ᵀ and dPᵀ = V dOᵀ: 64 keys × BQ queries, depth DP
+    float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      Wgmma<BQ>::ss(st, desc(ka + pn * kBK * 16, 16, 256, kB32),
+                    desc(qs + pn * BQ * 16, 16, 256, kB32), 1);
+      Wgmma<BQ>::ss(dpt, desc(va + pn * kBK * 16, 16, 256, kB32),
+                    desc(ds + pn * BQ * 16, 16, 256, kB32), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P and dS in place: element i is (key0 or key1, query 8(i/4) + 2t +
+    // (i & 1))
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int qc = (i / 4) * 8 + 2 * t + (i & 1);
+      const bool live = ((i & 3) < 2 ? key0 : key1) < p.Sk;
+      const float pv =
+          live ? exp2f(st[i] * kLog2e - ls[qc] * kLog2e) : 0.f;
+      st[i] = pv;
+      dpt[i] = pv * (dpt[i] - ls[BQ + qc]);
+    }
+    // two adjacent 8-query slices are the A fragment of 16 queries
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = mos::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] =
+            mos::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+    // dV += Pᵀ dO and dK += dSᵀ Q̃: B is the same tiles, read transposed
+    // (16 queries a step, DP columns over NP panels)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Wgmma<DP>::rs_t(dv, pa[kk], desc(ds + kk * 256, BQ * 32, 256, kB32), 1);
+      Wgmma<DP>::rs_t(dk, da[kk], desc(qs + kk * 256, BQ * 32, 256, kB32), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dK and dV through shared memory (row-major, stride YS), 16 B stores
+  bf16* yk = reinterpret_cast<bf16*>(smem_raw);
+  bf16* yv = yk + kBK * YS;
+  const int r0 = wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(yk + r0 * YS + c) =
+        mos::pack_bf16(dk[4 * j], dk[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(yk + (r0 + 8) * YS + c) =
+        mos::pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(yv + r0 * YS + c) =
+        mos::pack_bf16(dv[4 * j], dv[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(yv + (r0 + 8) * YS + c) =
+        mos::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+  }
+  __syncthreads();
   bf16* dkg = static_cast<bf16*>(p.dk) + b * p.Sk * tok + h * D;
   bf16* dvg = static_cast<bf16*>(p.dv) + b * p.Sk * tok + h * D;
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + 2 * t + (e & 1);
-      const int key = e < 2 ? key0 : key1;
-      if (col < D && key < p.Sk) {
-        dkg[key * tok + col] = __float2bfloat16_rn(dk[j][e]);
-        dvg[key * tok + col] = __float2bfloat16_rn(dv[j][e]);
-      }
+  for (int ci = tid; ci < kBK * CH; ci += 256) {
+    const int r = ci / CH, c = (ci % CH) * 8;
+    if (k0 + r < p.Sk && c < D) {
+      store_chunk(dkg + (k0 + r) * tok + c, yk + r * YS + c, D - c);
+      store_chunk(dvg + (k0 + r) * tok + c, yv + r * YS + c, D - c);
     }
+  }
 }
 
-template <int DP, int BQ>
+template <int DP, int BQ, int MINB = 1>
 int launch_bf16(const BwdParams& p, cudaStream_t stream) {
-  constexpr int BK = 64;
-  const size_t smem = (size_t)(2 * BK * (DP + 8) + 2 * BQ * (DP + 8) +
-                               2 * DP * (BQ + 8)) * 2 +
-                      (size_t)2 * BQ * sizeof(float);
-  auto kern = dkv_bf16_kernel<DP, BQ>;
+  const int smem = 2 * kBK * DP * 2 + kStages * (2 * BQ * DP * 2 + 2 * BQ * 4);
+  auto kern = dkv_bf16_kernel<DP, BQ, MINB>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Sk + BK - 1) / BK, p.H, p.B);
-  kern<<<grid, 128, smem, stream>>>(p);
+  const dim3 grid((p.Sk + kBK - 1) / kBK, p.H, p.B);
+  kern<<<grid, 256, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -336,12 +386,16 @@ extern "C" int mos_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (D < 1 || D > 160 || Sq < 1 || Sk < 1) return -1;
   if (dtype == MOS_F32) return launch_f32(p, st);
   if (dtype != MOS_BF16) return -1;
-  if (D <= 16) return launch_bf16<16, 64>(p, st);
-  if (D <= 32) return launch_bf16<32, 64>(p, st);
-  if (D <= 48) return launch_bf16<48, 64>(p, st);
+  // 32-query tiles and two blocks an SM at the narrow heads (on an H100
+  // SXM at 700 W: 0.44 against 0.58 ms for 64-query tiles at (2,4096,8,40)),
+  // 64-query tiles from D 64 (0.044 against 0.050 ms at (2,1024,8,80));
+  // register room caps the wider heads at 32
+  if (D <= 16) return launch_bf16<16, 32, 2>(p, st);
+  if (D <= 32) return launch_bf16<32, 32, 2>(p, st);
+  if (D <= 48) return launch_bf16<48, 32, 2>(p, st);
   if (D <= 64) return launch_bf16<64, 64>(p, st);
   if (D <= 80) return launch_bf16<80, 64>(p, st);
-  if (D <= 96) return launch_bf16<96, 32>(p, st);
+  if (D <= 96) return launch_bf16<96, 64>(p, st);
   if (D <= 128) return launch_bf16<128, 32>(p, st);
   return launch_bf16<160, 32>(p, st);
 }

@@ -36,8 +36,9 @@ DTYPE_BF16 = 1
 _c = ctypes
 _ATTN_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6 + [_c.c_longlong] * 8
               + [_c.c_float, _c.c_int, _c.c_void_p])
-_GEMM_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 3 + [_c.c_longlong] * 2
-              + [_c.c_int, _c.c_void_p])
+_GEMM_ARGS = ([_c.c_int] + [_c.POINTER(_c.c_void_p)] * 4
+              + [_c.POINTER(_c.c_int)] * 3 + [_c.POINTER(_c.c_longlong)] * 2
+              + [_c.POINTER(_c.c_float), _c.c_int, _c.c_void_p])
 _REGION_ARGS = ([_c.c_void_p] * 6 + [_c.c_int] * 7
                 + [_c.POINTER(_c.c_int), _c.c_float, _c.c_int, _c.c_void_p])
 _FLASH_FWD_ARGS = ([_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 8
@@ -114,8 +115,8 @@ def cuda_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.mos_attn_fwd.argtypes = _ATTN_ARGS
     lib.mos_attn_fwd.restype = ctypes.c_int
-    lib.mos_gemm_bias.argtypes = _GEMM_ARGS
-    lib.mos_gemm_bias.restype = ctypes.c_int
+    lib.mos_gemm_grouped.argtypes = _GEMM_ARGS
+    lib.mos_gemm_grouped.restype = ctypes.c_int
     lib.mos_region_attn.argtypes = _REGION_ARGS
     lib.mos_region_attn.restype = ctypes.c_int
     lib.mos_flash_fwd.argtypes = _FLASH_FWD_ARGS

@@ -9,9 +9,15 @@ Port of mixofshow_tpu/ops/fused_attention.py:
     kernel pads D only inside its shared-memory tiles.
     `attention_packed` is the processor around it: the q/k/v/out projections
     stay plain `F.linear` products, as the JAX package left them to XLA.
-  * `attention_block` (K3, csrc/gemm_bias.cu + the attn_fwd core) replaces
-    `_kernel`, the whole attention processor of the VAE mid-block: q/k/v
-    projections with biases, softmax per head, out-projection plus bias.
+    Its bf16 heads wider than 160 (up to 512) run csrc/attn_wide.cu, the
+    wgmma core built for K3.
+  * `attention_block` (K3) replaces `_kernel`, the whole attention processor
+    of the VAE mid-block (one 512-wide head): the q, k and v projections with
+    biases in one grouped wgmma GEMM launch (csrc/gemm_hopper.cu), 1/√D
+    folded into q after its bias and before the bf16 rounding as the TPU
+    kernel did; the attention core with scale 1 (csrc/attn_wide.cu for heads
+    wider than 160, the attn_fwd core below that); the out-projection plus
+    bias (the same GEMM, one triple). Three launches, one call.
 
 Weights use the PyTorch layout, (out, in). Each wrapper runs its plain
 version for CPU tensors and launches its kernel for CUDA tensors; there is
@@ -22,6 +28,7 @@ gradient; training takes ops.flash_attention.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -65,9 +72,11 @@ def attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads: int,
 
 
 # ------------------------------------------------------------------ launches
-def _launch_attn(q, k, v, out, kv_len: int) -> None:
+def _launch_attn(q, k, v, out, kv_len: int,
+                 scale: Optional[float] = None) -> None:
     """Launch csrc/attn_fwd.cu on (B, S, H, D) views whose heads are
-    contiguous within a token (head stride D, element stride 1)."""
+    contiguous within a token (head stride D, element stride 1); the logits
+    are scaled by `scale` (default 1/√D)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) \
@@ -90,30 +99,52 @@ def _launch_attn(q, k, v, out, kv_len: int) -> None:
             b, sq, sk, h, d, kv_len,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            1.0 / math.sqrt(d), code, _build.stream(q))
+            1.0 / math.sqrt(d) if scale is None else scale, code,
+            _build.stream(q))
     _build.check(rc, 'attn_fwd')
 
 
-def _gemm_bias(x2d, w, bias):
-    """Launch csrc/gemm_bias.cu: (M, K) · (N, K)ᵀ + bias -> (M, N)."""
-    m, kdim = x2d.shape
-    n = w.shape[0]
-    if x2d.stride(1) != 1 or not w.is_contiguous() or w.shape[1] != kdim:
-        raise ValueError(f'gemm_bias needs a row-major x and a contiguous '
-                         f'(N, K) weight, got x{tuple(x2d.shape)} '
-                         f'{x2d.stride()} w{tuple(w.shape)}')
-    if bias is not None and (bias.shape != (n,) or not bias.is_contiguous()):
-        raise ValueError(f'bias must be contiguous ({n},)')
-    code = _build.dtype_code(x2d, w, *(() if bias is None else (bias,)))
-    y = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
+_GEMM_COLUMNS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+                 + (ctypes.c_longlong,) * 2 + (ctypes.c_float,))
+
+
+def _gemm_grouped(triples):
+    """Launch csrc/gemm_hopper.cu once over up to three (x2d, w, bias,
+    scale) triples: each (M, K) · (N, K)ᵀ + bias, times scale -> a new
+    (M, N) tensor. Every argument is checked before the launch."""
+    if not 1 <= len(triples) <= 3:
+        raise ValueError(f'gemm_grouped takes 1 to 3 triples, got '
+                         f'{len(triples)}')
+    ts = [t for tr in triples for t in tr[:3] if t is not None]
+    _build.device_type(*ts)
+    code = _build.dtype_code(*ts)
+    rows, ys = [], []
+    for x2d, w, bias, scale in triples:
+        m, kdim = x2d.shape
+        n = w.shape[0]
+        if x2d.stride(1) != 1 or w.dim() != 2 or not w.is_contiguous() \
+                or w.shape[1] != kdim:
+            raise ValueError(f'gemm_grouped needs a row-major x and a '
+                             f'contiguous (N, K) weight, got '
+                             f'x{tuple(x2d.shape)} {x2d.stride()} '
+                             f'w{tuple(w.shape)}')
+        if bias is not None and (bias.shape != (n,)
+                                 or not bias.is_contiguous()):
+            raise ValueError(f'bias must be contiguous ({n},)')
+        ys.append(torch.empty((m, n), dtype=x2d.dtype, device=x2d.device))
+        rows.append((x2d.data_ptr(), w.data_ptr(),
+                     None if bias is None else bias.data_ptr(),
+                     ys[-1].data_ptr(), m, n, kdim, x2d.stride(0),
+                     ys[-1].stride(0), scale))
+    # one C array per argument, an entry per triple
+    arrays = [(t * len(rows))(*col)
+              for t, col in zip(_GEMM_COLUMNS, zip(*rows))]
     lib = _build.cuda_lib()
-    with torch.cuda.device(x2d.device):
-        rc = lib.mos_gemm_bias(
-            x2d.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            m, n, kdim, x2d.stride(0), y.stride(0), code, _build.stream(x2d))
-    _build.check(rc, 'gemm_bias')
-    return y
+    with torch.cuda.device(ys[0].device):
+        rc = lib.mos_gemm_grouped(len(rows), *arrays, code,
+                                  _build.stream(ys[0]))
+    _build.check(rc, 'gemm_grouped')
+    return ys
 
 
 # ----------------------------------------------------------------- wrappers
@@ -153,9 +184,11 @@ def attention_block(x, ctx, wq, wk, wv, wo, bias, heads: int,
     """Whole attention processor, K3: x (B, Sq, C), ctx (B, Sk, Cc) ->
     to_out(softmax(q kᵀ/√D) v) + bias, q/k/v with optional biases.
 
-    CUDA tensors: the q, k and v projections (csrc/gemm_bias.cu), the
-    attention core (csrc/attn_fwd.cu) and the out-projection, all
-    hand-written; CPU tensors run `attention_block_plain`."""
+    CUDA tensors: the q, k and v projections in one grouped GEMM launch
+    (csrc/gemm_hopper.cu, 1/√D folded into q), the attention core with
+    scale 1 (csrc/attn_wide.cu for bf16 heads wider than 160, else
+    csrc/attn_fwd.cu) and the out-projection, all hand-written; CPU tensors
+    run `attention_block_plain`."""
     _build.forward_only('attention_block', x, ctx, wq, wk, wv, wo, bias,
                         bias_q, bias_k, bias_v)
     if _build.device_type(x, ctx, wq, wk, wv, wo) == 'cpu':
@@ -166,13 +199,16 @@ def attention_block(x, ctx, wq, wk, wv, wo, bias, heads: int,
     if c % heads:
         raise ValueError(f'{heads} heads do not divide width {c}')
     d = c // heads
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f'attention_block takes head dim <= {MAX_HEAD_DIM},'
+                         f' got {d}')
     x2, c2 = x.reshape(b * sq, c), ctx.reshape(b * sk, ctx.shape[-1])
-    q = _gemm_bias(x2, wq, bias_q).view(b, sq, heads, d)
-    k = _gemm_bias(c2, wk, bias_k).view(b, sk, heads, d)
-    v = _gemm_bias(c2, wv, bias_v).view(b, sk, heads, d)
+    q, k, v = _gemm_grouped([(x2, wq, bias_q, 1.0 / math.sqrt(d)),
+                             (c2, wk, bias_k, 1.0), (c2, wv, bias_v, 1.0)])
+    q, k, v = (t.view(b, -1, heads, d) for t in (q, k, v))
     o = torch.empty_like(q)
-    _launch_attn(q, k, v, o, sk)
-    y = _gemm_bias(o.view(b * sq, c), wo, bias)
+    _launch_attn(q, k, v, o, sk, scale=1.0)
+    y, = _gemm_grouped([(o.view(b * sq, c), wo, bias, 1.0)])
     attention_block.launches += 1
     return y.view(b, sq, c)
 

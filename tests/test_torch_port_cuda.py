@@ -76,7 +76,8 @@ def test_attn_fwd_reads_strided_views(dev):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('b,sq,sk,c,heads,biases', [
     (2, 1024, 1024, 512, 1, True), (1, 100, 77, 64, 2, False),
-    (2, 300, 300, 32, 1, True)])
+    (2, 300, 300, 32, 1, True), (2, 256, 77, 512, 1, True),
+    (1, 300, 300, 512, 1, True), (2, 4096, 4096, 512, 1, True)])
 def test_attention_block_matches_plain(dev, dtype, b, sq, sk, c, heads,
                                        biases):
     x = _randn(dev, b, sq, c, dtype=dtype, seed=1)
@@ -257,7 +258,9 @@ FLASH_LSE_TOL = 1e-3
 FLASH_F32_TOL = 1e-4
 FLASH_CASES = [(1, 256, 1024, 2, 16), (2, 130, 1100, 2, 40),
                (1, 1024, 1024, 8, 80), (1, 200, 1300, 2, 160),
-               (1, 128, 2048, 1, 96), (1, 300, 1024, 3, 64)]
+               (1, 128, 2048, 1, 96), (1, 300, 1024, 3, 64),
+               (1, 1000, 777, 2, 40), (2, 333, 1100, 1, 80),
+               (1, 77, 300, 2, 160), (1, 130, 70, 3, 16)]
 
 
 def flash_err(got, want):

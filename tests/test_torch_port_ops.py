@@ -142,31 +142,60 @@ def test_attn_fwd_plain_masks_keys_past_kv_len():
     torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
 
 
-def test_cuda_launch_checks_raise_before_launch():
-    """Shapes the kernels cannot take raise (ValueError/TypeError) in the
-    wrapper's checks — never a silent fallback to the plain version."""
-    q = torch.zeros(1, 8, 1, 520)
-    with pytest.raises(ValueError, match='head dim'):
-        pfa._launch_attn(q, q, q, q, 8)
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(ValueError, match='kv_len'):
-        pfa._launch_attn(q, q, q, q, 0)
-    with pytest.raises(ValueError, match='contiguous'):
-        t = torch.zeros(1, 8, 16, 2).transpose(2, 3)
-        pfa._launch_attn(t, t, t, t, 8)
-    with pytest.raises(TypeError):
-        h = q.half()
-        pfa._launch_attn(h, h, h, h, 8)
-    with pytest.raises(ValueError):
-        pfa._gemm_bias(torch.zeros(4, 8), torch.zeros(3, 7), None)
-    with pytest.raises(ValueError, match='one device'):
-        pfa.attn_fwd(q, q.to('meta'), q)
-    with pytest.raises(ValueError, match='unsupported device'):
-        pgn.spatial_sums(torch.zeros(1, 2, 4, 6, device='meta'))
-    m = torch.zeros(1, 2, 4, 6, device='meta')
-    with pytest.raises(ValueError, match='unsupported device'):
-        pgn.scale_bias_act(m, torch.zeros(1, 2, device='meta'),
-                           torch.zeros(1, 2, device='meta'))
+def _zeros(*shape, **kw):
+    return torch.zeros(*shape, **kw)
+
+
+_Q = _zeros(1, 8, 2, 16)
+_T = _zeros(1, 8, 16, 2).transpose(2, 3)
+_M = _zeros(1, 2, 4, 6, device='meta')
+_W = _zeros(8, 8)
+LAUNCH_CHECKS = {
+    'head dim': (lambda: pfa._launch_attn(*[_zeros(1, 8, 1, 520)] * 4, 8),
+                 ValueError, 'head dim'),
+    'kv_len': (lambda: pfa._launch_attn(_Q, _Q, _Q, _Q, 0), ValueError,
+               'kv_len'),
+    'strides': (lambda: pfa._launch_attn(_T, _T, _T, _T, 8), ValueError,
+                'contiguous'),
+    'dtype': (lambda: pfa._launch_attn(*[_Q.half()] * 4, 8), TypeError, None),
+    'one device': (lambda: pfa.attn_fwd(_Q, _Q.to('meta'), _Q), ValueError,
+                   'one device'),
+    'sums device': (lambda: pgn.spatial_sums(_M), ValueError,
+                    'unsupported device'),
+    'apply device': (lambda: pgn.scale_bias_act(
+        _M, _zeros(1, 2, device='meta'), _zeros(1, 2, device='meta')),
+        ValueError, 'unsupported device'),
+    'gemm weight width': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8), _zeros(3, 7), None, 1.0)]), ValueError, 'weight'),
+    'gemm strided x': (lambda: pfa._gemm_grouped(
+        [(_zeros(8, 4).t(), _zeros(3, 8), None, 1.0)]), ValueError,
+        'row-major'),
+    'gemm strided weight': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8), _zeros(8, 3).t(), None, 1.0)]), ValueError,
+        'weight'),
+    'gemm bias shape': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8), _W, _zeros(7), 1.0)]), ValueError, 'bias'),
+    'gemm no triple': (lambda: pfa._gemm_grouped([]), ValueError,
+                       '1 to 3'),
+    'gemm four triples': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8), _W, None, 1.0)] * 4), ValueError, '1 to 3'),
+    'gemm mixed dtypes': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8), _W, None, 1.0),
+         (_zeros(4, 8).bfloat16(), _W.bfloat16(), None, 1.0)]), TypeError,
+        'one dtype'),
+    'gemm half': (lambda: pfa._gemm_grouped(
+        [(_zeros(4, 8).half(), _W.half(), None, 1.0)]), TypeError, None),
+}
+
+
+@pytest.mark.parametrize('case', sorted(LAUNCH_CHECKS))
+def test_cuda_launch_checks_raise_before_launch(case):
+    """Shapes and types the kernels cannot take raise (ValueError or
+    TypeError) in the wrappers' checks, before anything is built or
+    launched: never a silent fallback to the plain version."""
+    fn, exc, match = LAUNCH_CHECKS[case]
+    with pytest.raises(exc, match=match):
+        fn()
 
 
 def test_launch_registry():
@@ -195,5 +224,6 @@ def test_build_needs_nvcc_and_keys_the_library_on_its_sources(monkeypatch):
     monkeypatch.setattr(_build, 'NVCC_FLAGS', _build.NVCC_FLAGS + ('-G',))
     assert _build.library_path() != path
     srcs = {p.name for p in _build.CSRC_DIR.iterdir()}
-    assert {'attn_fwd.cu', 'gemm_bias.cu', 'mma.cuh', 'region_attn.cu',
-            'flash_bwd_dkv.cu', 'flash_bwd_dq.cu'} <= srcs
+    assert {'attn_fwd.cu', 'attn_wide.cu', 'gemm_hopper.cu', 'mma.cuh',
+            'wgmma.cuh', 'region_attn.cu', 'flash_bwd_dkv.cu',
+            'flash_bwd_dq.cu'} <= srcs
