@@ -17,7 +17,9 @@ line when any fails, or when no CUDA device is visible):
                 over their peak rate, whichever is longer) and, where one
                 PyTorch call computes the same function, that call's time
                 (library_ms), K3 also by its three launches (the grouped
-                q/k/v GEMM, the wide core, the out-projection); the
+                q/k/v GEMM, the wide core, the out-projection); K1's
+                planted faults (a 64-key tile, the ragged last tile, the
+                kv_len mask left out of the twin) over its bf16 bound; the
                 flash kernels (K4-K6) also in fp32 against
                 autograd of the plain attention, a backward rerun that must
                 be bit-identical, and a planted fault (the plain backward
@@ -126,6 +128,13 @@ from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
 # expected; 3e-2 is the bound the JAX suite uses for its bf16 attention
 # kernels (tests/test_ops.py).
 ATTN_BOUND = 3e-2
+# K1 bf16 against its twin on the same bf16 inputs (q̃ = bf16(q·scale) and
+# the output rounded to bf16 in both): the largest error relative to the
+# twin's largest entry. The two round the same fp32 values to within ~1e-4,
+# so they differ by at most one bf16 ulp, 2^-7 = 7.8e-3 of max|twin|; the
+# planted faults (_attn_faults) must come out over it, and phase 3 prints
+# how far
+ATTN_BF16_REL = 1e-2
 # bf16 flash kernels (K4-K6), the training path's: the largest error
 # relative to the twin's largest entry (one bf16 ulp there is 2^-8 to 2^-7
 # of it), tight enough that a backward dropping Dvec from dS is over it
@@ -300,14 +309,16 @@ def phase_kernels(dev):
 
     res = {}
     # K1 at the UNet's res-64 and res-32 self-attention (CFG batch of 2
-    # prompts), and a ragged kv_len
+    # prompts), a ragged kv_len, and the widest head of its wgmma kernel
     for b, s, h, d, sk, kvl in [(4, 4096, 8, 40, 4096, 4096),
                                 (4, 1024, 8, 80, 1024, 1024),
-                                (2, 1000, 8, 40, 1100, 1037)]:
+                                (2, 1000, 8, 40, 1100, 1037),
+                                (2, 256, 8, 160, 1024, 1024)]:
         q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
         out = fa.attn_fwd(q, k, v, kvl)
-        ref = fa.attn_fwd_plain(q.float(), k.float(), v.float(), kvl)
-        err = (out.float() - ref).abs().max().item()
+        ref = fa.attn_fwd_plain(q, k, v, kvl)
+        err, rel = _max_err(out, ref), _flash_err(out, ref)
+        fault = min(_flash_err(f, ref) for f in _attn_faults(q, k, v, kvl))
         ms = cuda_ms(lambda: fa.attn_fwd(q, k, v, kvl))
         pms = cuda_ms(lambda: fa.attn_fwd_plain(q, k, v, kvl))
         bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], out),
@@ -315,10 +326,16 @@ def phase_kernels(dev):
         # a ragged kv_len: SDPA over the first kv_len keys
         lib = sdpa_ms(q, k[:, :kvl], v[:, :kvl])
         print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
-              f'kv_len={kvl}: max_abs_err {err:.3e} (bound {ATTN_BOUND}); '
-              f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
-              f'ms ({bnd[1]}), SDPA {lib:.4f} ms', flush=True)
-        check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_fwd disagrees')
+              f'kv_len={kvl}: error vs twin {rel:.3e} of max|twin| (bound '
+              f'{ATTN_BF16_REL}), max_abs_err {err:.3e}; planted fault '
+              f'{fault:.3e} (must exceed {ATTN_BF16_REL}); kernel {ms:.4f} '
+              f'ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
+              f'SDPA {lib:.4f} ms', flush=True)
+        check(math.isfinite(rel) and rel <= ATTN_BF16_REL,
+              'attn_fwd disagrees')
+        check(fault > ATTN_BF16_REL,
+              f'attn_fwd bound {ATTN_BF16_REL} does not reject the planted '
+              'fault')
         res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
     # K2 at the VAE decoder's GroupNorm inputs (2 images): NHWC
     # (2,64,64,512), (2,256,256,256), (2,512,512,128) held NCHW
@@ -483,9 +500,25 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def _attn_faults(q, k, v, kv_len):
+    """Planted K1 faults, the twin with keys 64-127 (one 64-key tile) left
+    out and, for a ragged kv_len, with the ragged last tile left out and
+    with the kv_len mask dropped."""
+    def drop(t):
+        return torch.cat((t[:, :64], t[:, 128:]), dim=1)
+    faults = [fa.attn_fwd_plain(q, drop(k), drop(v),
+                                64 + max(kv_len - 128, 0))]
+    if kv_len % 64:
+        faults.append(fa.attn_fwd_plain(q, k, v, kv_len // 64 * 64))
+    if kv_len < k.shape[1]:
+        faults.append(fa.attn_fwd_plain(q, k, v))
+    return faults
+
+
 def _flash_err(got, want):
     """Largest error against the twin: relative to the twin's largest entry
-    in bf16 (FLASH_BF16_REL), absolute in fp32 (FLASH_F32_BOUND)."""
+    in bf16 (FLASH_BF16_REL, ATTN_BF16_REL), absolute in fp32
+    (FLASH_F32_BOUND)."""
     err = _max_err(got, want)
     if want.dtype == torch.bfloat16:
         return err / want.float().abs().max().item()

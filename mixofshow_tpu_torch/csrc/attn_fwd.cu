@@ -4,39 +4,54 @@
 // Replaces two TPU kernels:
 //   * mixofshow_tpu/ops/fused_attention.py `_packed_fwd_kernel` (K1,
 //     launched by `_packed_flash`, wrapped by `attention_packed`):
-//     entry point mos_attn_fwd, the FLASH = false instantiations;
+//     entry point mos_attn_fwd;
 //   * mixofshow_tpu/ops/flash_attention.py `_fwd_kernel` (K4, the forward
 //     of the differentiable `flash_attention`): entry point mos_flash_fwd,
-//     the FLASH = true instantiations. They fold the softmax scale into q
-//     before the bf16 rounding, as the TPU kernel did, and also store the
-//     per-row log-sum-exp (B, H, Sq) in fp32 that the backward kernels
-//     (flash_bwd_dkv.cu, flash_bwd_dq.cu) recompute P from. The TPU
-//     kernel's 8-lane LSE replication was a VMEM tiling artifact and is
-//     not copied.
+//     which also stores the per-row log-sum-exp (B, H, Sq) in fp32 that the
+//     backward kernels (flash_bwd_dkv.cu, flash_bwd_dq.cu) recompute P from.
+//     The TPU kernel's 8-lane LSE replication was a VMEM tiling artifact and
+//     is not copied.
+// Both fold the softmax scale into q before the bf16 rounding,
+// q̃ = bf16(q · scale), as both TPU kernels do; K3's core passes scale 1.
 //
 // The TPU K1 zero-padded every head from D to 128 lanes in HBM and held one
-// head's whole K/V in VMEM (K4 likewise held K/V resident); here the head width is
-// padded only inside shared-memory tiles (to the MMA's multiple of 16), and K
-// and V stream through in tiles with an online softmax (FlashAttention-2
-// style), so nothing padded ever reaches device memory.
+// head's whole K/V in VMEM (K4 likewise held K/V resident); here the head
+// width is padded only inside shared-memory tiles (to a multiple of 16),
+// and K and V stream through in tiles with an online softmax
+// (FlashAttention-2 style), so nothing padded ever reaches device memory.
 //
-// What bounds it on the card: at the UNet's shapes (D = 40/80, 1024-4096
-// keys) the work is the two products (4·Sq·Sk·D flops per head), so it is
-// tensor-core bound in principle; this first version reads its tiles with
-// scalar loads and no copy/compute overlap, so it is latency bound instead.
+// What bounds it on the card: the two products, 4·Sq·Sk·D flops per head,
+// make it tensor-core bound on paper (85.9 GFLOP at the sampling path's
+// (4, 4096, 8, 40): 87 µs at the bf16 peak). At D = 40 each logit costs
+// 80 flops of products but one exp2 on the SMs' 16-lane special-function
+// units (145 µs for that shape's 537M logits) and a handful of fp32
+// instructions, so the softmax, not the tensor cores, sets the pace; the
+// design keeps the products in flight while it runs.
 //
-// Design:
-//   * bf16: one block per (q-block of 16·NW rows, head, batch); each warp
-//     owns 16 query rows. S = Q Kᵀ and O += P V run on mma.sync m16n8k16
-//     with fp32 accumulators; the row max/sum live in registers (fp32) and
-//     P is rounded to bf16 only as the A operand of the value product.
-//     O stays in registers for D <= 128; at D = 160 it lives in shared
-//     memory in fragment order. Wider bf16 heads (to 512: the VAE's single
-//     head) go to attn_wide.cu, a wgmma core that splits the head over two
-//     warpgroups.
+// Design (bf16, D <= 160): a block owns BQ = 64 · NWG query rows of one
+// (batch, head); each of its NWG warpgroups owns 64 rows, and all of them
+// share every K/V tile (four up to D 80 where the grid fills the SMs, else
+// two: see launch_tiles). Q̃ is loaded once by cp.async into 32B-swizzled
+// panels of 16 columns (wgmma.cuh), the head padded to DP only there, and
+// scaled in place after it lands. K and V stream through a ring of STAGES
+// cp.async stages of BK keys (two tiles in flight), each tile held once;
+// ragged rows are zero-filled, the pad columns zeroed once. S = Q̃·Kᵀ is
+// wgmma.m64nBKk16 with K read K-major; P, packed to bf16 from S's
+// accumulator (whose layout is the A fragment layout), is the register A
+// operand of O += P·V, wgmma.m64nDPk16 with V read MN-major through the
+// descriptor: no transposed copy. The online softmax runs in registers in
+// the accumulator layout (log2 domain, quad shuffles for the row max and
+// sum, exp2 on the special-function unit alone). The next tile's S is
+// issued before this tile's P·V, and its softmax runs while P·V is in
+// flight. The normalised O goes out through shared memory with 16 B
+// stores; the LSE only where the caller passes a buffer for it (K4). Heads
+// wider than 160 (to 512: the VAE's single head) go to attn_wide.cu's
+// wgmma core (K1 only).
 //   * fp32: a SIMT kernel (one warp per query row, 32 keys per tile) that
 //     computes everything in fp32, for fp32 reference runs on the card.
-#include "mma.cuh"
+#include <atomic>
+
+#include "wgmma.cuh"
 
 // the wgmma core for D in (160, 512], bf16 (attn_wide.cu)
 extern "C" int mos_attn_wide(const void* q, const void* k, const void* v,
@@ -56,171 +71,231 @@ struct AttnParams {
   int B, Sq, Sk, H, D, kv_len;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   float scale;
-  float* lse;  // (B, H, Sq) fp32, written by the FLASH instantiations only
+  float* lse;  // (B, H, Sq) fp32, or null: written by K4 only
 };
 
 constexpr float kNeg = -1e30f;  // masked logit, as the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit alone; results below 2^-126 flush to
+// zero (exp2f adds the instructions that keep them, for every logit)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ------------------------------------------------------------------- bf16
-template <int DP, int NW, int BK, bool OSMEM, bool FLASH>
-__global__ void __launch_bounds__(NW * 32)
-    attn_fwd_bf16_kernel(AttnParams p) {
+constexpr int BK = 64;  // keys a K/V tile
+
+template <int DP, int NWG, int STAGES>
+__global__ void __launch_bounds__(NWG * 128)
+    attn_fwd_bf16_kernel(const __grid_constant__ AttnParams p) {
+  using namespace mos::sm90;
   using bf16 = __nv_bfloat16;
-  constexpr int BQ = NW * 16;
-  constexpr int QS = DP + 8;  // row stride (elements) of Q and K tiles
-  constexpr int VS = BK + 8;  // row stride of the transposed V tile
-  constexpr int NT_S = BK / 8;
-  constexpr int NT_O = DP / 8;
-  constexpr int NTHREADS = NW * 32;
+  static_assert(DP % 16 == 0, "panels of 16 columns");
+  static_assert(STAGES >= 3, "two tiles in flight and one being read");
+  constexpr int BQ = NWG * 64;      // query rows a block
+  constexpr int NT = NWG * 128;     // threads
+  constexpr int NP = DP / 16;       // panels of 16 columns
+  constexpr int CH = DP / 8;        // 16 B chunks a row
+  constexpr int T_ELEMS = BK * DP;  // one K (or V) tile
+  constexpr int YS = DP + 8;        // epilogue row stride
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * QS;
-  bf16* Vt = Ks + BK * QS;
-  float* Os = reinterpret_cast<float*>(Vt + DP * VS);
+  bf16* ring = Qs + BQ * DP;  // stage s: K at ring + 2s·T_ELEMS, V after it
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const int warp = lt / 32, lane = lt % 32, g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = p.D;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
+  const int D = p.D, kv_len = p.kv_len;
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * D;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * D;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * D;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * D;
 
-  for (int i = tid; i < BQ * DP; i += NTHREADS) {
-    const int r = i / DP, c = i % DP;
-    const bool ok = q0 + r < p.Sq && c < D;
-    if constexpr (FLASH) {
-      // scale folded into q, then rounded to bf16 (the TPU kernel's order)
-      Qs[r * QS + c] =
-          ok ? __float2bfloat16_rn(
-                   __bfloat162float(qg[(long long)(q0 + r) * p.q_ss + c]) *
-                   p.scale)
-             : zero;
-    } else {
-      Qs[r * QS + c] = ok ? qg[(long long)(q0 + r) * p.q_ss + c] : zero;
-    }
+  // chunk cc of row r: panel cc / 2, chunk cc % 2 in it
+  for (int ci = tid; ci < BQ * CH; ci += NT) {
+    const int r = ci / CH, cc = ci % CH;
+    load_chunk(Qs + (cc / 2) * BQ * 16 + sw32(r, cc % 2),
+               qg + (long long)(q0 + r) * p.q_ss + cc * 8,
+               q0 + r < p.Sq ? D - cc * 8 : 0);
   }
-
-  float o_reg[OSMEM ? 1 : NT_O][4];
-  float* ow = Os + warp * NT_O * 128;  // this warp's O, fragment order
-  if constexpr (OSMEM) {
-    for (int i = lane; i < NT_O * 128; i += 32) ow[i] = 0.f;
-  } else {
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o_reg[j][e] = 0.f;
+  // the columns past D of every K and V tile are zeroed once, here; no
+  // tile load writes them
+  for (int ci = tid; ci < 2 * STAGES * BK * CH; ci += NT) {
+    const int tile = ci / (BK * CH), r = (ci / CH) % BK, cc = ci % CH;
+    if (cc * 8 >= D)
+      *reinterpret_cast<uint4*>(ring + tile * T_ELEMS + (cc / 2) * BK * 16 +
+                                sw32(r, cc % 2)) = make_uint4(0, 0, 0, 0);
   }
-
-  // rows g and g+8 of this warp's 16; log2-domain running max, and this
-  // thread's partial row sums (the 4 threads of a row are summed at the end)
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  const float sl2 = (FLASH ? 1.f : p.scale) * 1.4426950408889634f;
-  const int n_tiles = (p.kv_len + BK - 1) / BK;
-  const bf16* qr0 = Qs + (warp * 16 + g) * QS + 2 * t;
-  const bf16* qr1 = qr0 + 8 * QS;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  auto load_kv = [&](int s, int kt) {
+    bf16* ks = ring + 2 * s * T_ELEMS;
+    bf16* vs = ks + T_ELEMS;
     const int k0 = kt * BK;
-    __syncthreads();
-    for (int i = tid; i < BK * DP; i += NTHREADS) {
-      const int r = i / DP, c = i % DP;
-      const bool ok = (k0 + r < p.kv_len) && (c < D);
-      Ks[r * QS + c] = ok ? kg[(long long)(k0 + r) * p.k_ss + c] : zero;
-      Vt[c * VS + r] = ok ? vg[(long long)(k0 + r) * p.v_ss + c] : zero;
+    for (int ci = tid; ci < BK * CH; ci += NT) {
+      const int r = ci / CH, cc = ci % CH;
+      if (cc * 8 >= D) continue;
+      const int off = (cc / 2) * BK * 16 + sw32(r, cc % 2);
+      const int valid = k0 + r < kv_len ? D - cc * 8 : 0;
+      load_chunk(ks + off, kg + (long long)(k0 + r) * p.k_ss + cc * 8, valid);
+      load_chunk(vs + off, vg + (long long)(k0 + r) * p.v_ss + cc * 8, valid);
     }
-    __syncthreads();
-
-    float s[NT_S][4];
+  };
+  // q̃ = bf16(q · scale), in place, on the chunks this thread copied
+  auto scale_q = [&]() {
+    for (int ci = tid; ci < BQ * CH; ci += NT) {
+      const int r = ci / CH, cc = ci % CH;
+      uint4* c = reinterpret_cast<uint4*>(Qs + (cc / 2) * BQ * 16 +
+                                          sw32(r, cc % 2));
+      uint4 v = *c;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const uint32_t a[4] = {mos::ld_u32(qr0 + ks * 16), mos::ld_u32(qr1 + ks * 16),
-                             mos::ld_u32(qr0 + ks * 16 + 8),
-                             mos::ld_u32(qr1 + ks * 16 + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const bf16* kr = Ks + (nt * 8 + g) * QS + ks * 16 + 2 * t;
-        mos::mma_bf16_16x8x16(s[nt], a, mos::ld_u32(kr), mos::ld_u32(kr + 8));
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(e[i]);
+        e[i] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
       }
+      *c = v;
     }
+  };
 
+  // Q with the first tile in the first group, then one group a tile
+  const int n_tiles = (kv_len + BK - 1) / BK;
+  load_kv(0, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_kv(s, s);
+    cp_async_commit();
+  }
+
+  const bf16* qa = Qs + wg * 64 * 16;  // this warpgroup's 64 rows
+  float s[BK / 2], o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  uint32_t pa[BK / 16][4];
+  // rows g and g+8 of this warp's 16: log2-domain running max and this
+  // thread's partial row sums (the quad's four are summed at the end)
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+
+  // S = Q̃ Kᵀ of the tile in `stage`: one k16 step a panel
+  auto issue_s = [&](int stage) {
+    const bf16* ks = ring + 2 * stage * T_ELEMS;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+      Wgmma<BK>::ss(s, desc(qa + pn * BQ * 16, 16, 256, kB32),
+                    desc(ks + pn * BK * 16, 16, 256, kB32), pn > 0);
+  };
+  // O += P V: 16 keys a step, V read transposed (DP columns over the panels)
+  auto issue_pv = [&](int stage) {
+    const bf16* vs = ring + (2 * stage + 1) * T_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<DP>::rs_t(o, pa[kk], desc(vs + kk * 256, BK * 32, 256, kB32), 1);
+  };
+  // s -> P in place (fp32), the running max and sums updated; returns the
+  // factors that rescale O. Element i of s is (row g or g+8, key k0 +
+  // 8(i/4) + 2t + (i & 1)).
+  auto softmax = [&](int k0, float& al0, float& al1) {
+    if (k0 + BK > kv_len) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        if (k0 + (i / 4) * 8 + 2 * t + (i & 1) >= kv_len) s[i] = kNeg;
+    }
     float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const float x = col < p.kv_len ? s[nt][e] * sl2 : kNeg;
-        s[nt][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      if ((i & 3) < 2) mx0 = fmaxf(mx0, s[i]); else mx1 = fmaxf(mx1, s[i]);
+    }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     // tile 0 always holds key 0 < kv_len, so m is finite from then on and
-    // every masked logit below gives exp2(-1e30 - m) == 0
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    // every masked logit below gives exp2(-1e30·log2e - m) == 0
+    const float mn0 = fmaxf(m0, mx0 * kLog2e), mn1 = fmaxf(m1, mx1 * kLog2e);
+    al0 = exp2_ftz(m0 - mn0);
+    al1 = exp2_ftz(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - m0);
-      s[nt][1] = exp2f(s[nt][1] - m0);
-      s[nt][2] = exp2f(s[nt][2] - m1);
-      s[nt][3] = exp2f(s[nt][3] - m1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
+    for (int i = 0; i < BK / 2; ++i) {
+      if ((i & 3) < 2) {
+        s[i] = exp2_ftz(fmaf(s[i], kLog2e, -m0));
+        rs0 += s[i];
+      } else {
+        s[i] = exp2_ftz(fmaf(s[i], kLog2e, -m1));
+        rs1 += s[i];
+      }
     }
     l0 = l0 * al0 + rs0;
     l1 = l1 * al1 + rs1;
-
-    // the C layout of two adjacent S tiles is the A layout of P (16 keys)
-    uint32_t pa[BK / 16][4];
+  };
+  // two adjacent 8-key accumulator slices are the A fragment of 16 keys
+  auto pack_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = mos::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = mos::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = mos::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = mos::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = mos::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
+  auto rescale_o = [&](float al0, float al1) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= al0;
+      o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1;
+      o[4 * j + 3] *= al1;
     }
+  };
 
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      float c[4];
-      if constexpr (OSMEM) {
-        const float4 v = reinterpret_cast<float4*>(ow)[j * 32 + lane];
-        c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
-      } else {
-        c[0] = o_reg[j][0]; c[1] = o_reg[j][1];
-        c[2] = o_reg[j][2]; c[3] = o_reg[j][3];
-      }
-      c[0] *= al0; c[1] *= al0; c[2] *= al1; c[3] *= al1;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const bf16* vr = Vt + (j * 8 + g) * VS + kk * 16 + 2 * t;
-        mos::mma_bf16_16x8x16(c, pa[kk], mos::ld_u32(vr), mos::ld_u32(vr + 8));
-      }
-      if constexpr (OSMEM) {
-        reinterpret_cast<float4*>(ow)[j * 32 + lane] =
-            make_float4(c[0], c[1], c[2], c[3]);
-      } else {
-        o_reg[j][0] = c[0]; o_reg[j][1] = c[1];
-        o_reg[j][2] = c[2]; o_reg[j][3] = c[3];
-      }
-    }
+  // tile 0's logits first; then each step issues the next tile's S
+  // before this tile's P·V and runs the next softmax under the P·V
+  cp_async_wait<STAGES - 2>();
+  if (p.scale != 1.f) scale_q();
+  fence_proxy_async();
+  __syncthreads();
+  wg_fence();
+  issue_s(0);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  float al0, al1;
+  softmax(0, al0, al1);  // O is zero: nothing to rescale
+  pack_p();
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    cp_async_wait<STAGES - 3>();  // tile j + 1 has landed
+    fence_proxy_async();
+    __syncthreads();
+    // the stage of tile j - 1 is free: every thread has waited on both
+    // of its products before the barrier
+    if (j + STAGES - 1 < n_tiles)
+      load_kv((j + STAGES - 1) % STAGES, j + STAGES - 1);
+    cp_async_commit();
+    wg_fence();
+    issue_s((j + 1) % STAGES);
+    wg_commit();
+    issue_pv(j % STAGES);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(s);
+    softmax((j + 1) * BK, al0, al1);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    rescale_o(al0, al1);
+    pack_p();
   }
+  wg_fence();
+  issue_pv((n_tiles - 1) % STAGES);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(o);
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
@@ -228,46 +303,47 @@ __global__ void __launch_bounds__(NW * 32)
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  if constexpr (FLASH) {
+  const int r0 = wg * 64 + warp * 16 + g;  // row in the block
+  if (p.lse != nullptr && t == 0) {
     // natural-log LSE from the log2-domain max and the row sum
-    float* lrow = p.lse + ((long long)b * p.H + h) * p.Sq;
-    if (t == 0 && r0 < p.Sq) lrow[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
-    if (t == 0 && r1 < p.Sq) lrow[r1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+    float* lrow = p.lse + ((long long)b * p.H + h) * p.Sq + q0;
+    if (q0 + r0 < p.Sq) lrow[r0] = (m0 + log2f(l0)) * kLn2;
+    if (q0 + r0 + 8 < p.Sq) lrow[r0 + 8] = (m1 + log2f(l1)) * kLn2;
   }
+
+  // O through shared memory (row-major, stride YS, in the ring: every
+  // warpgroup is done with it after the barrier), then 16 B stores
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* ys = ring;
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    float c[4];
-    if constexpr (OSMEM) {
-      const float4 v = reinterpret_cast<float4*>(ow)[j * 32 + lane];
-      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
-    } else {
-      c[0] = o_reg[j][0]; c[1] = o_reg[j][1];
-      c[2] = o_reg[j][2]; c[3] = o_reg[j][3];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + 2 * t + (e & 1);
-      const int row = e < 2 ? r0 : r1;
-      if (col < D && row < p.Sq)
-        og[(long long)row * p.o_ss + col] =
-            __float2bfloat16_rn(c[e] * (e < 2 ? inv0 : inv1));
-    }
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(ys + r0 * YS + c) =
+        mos::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(ys + (r0 + 8) * YS + c) =
+        mos::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  __syncthreads();
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * D;
+  for (int ci = tid; ci < BQ * CH; ci += NT) {
+    const int r = ci / CH, c = (ci % CH) * 8;
+    if (q0 + r < p.Sq && c < D)
+      store_chunk(og + (long long)(q0 + r) * p.o_ss + c, ys + r * YS + c,
+                  D - c);
   }
 }
 
-template <int DP, int NW, int BK, bool OSMEM, bool FLASH>
+template <int DP, int NWG, int STAGES>
 int launch_bf16(const AttnParams& p, cudaStream_t stream) {
-  constexpr int BQ = NW * 16;
-  const size_t smem =
-      (size_t)(BQ * (DP + 8) + BK * (DP + 8) + DP * (BK + 8)) * 2 +
-      (OSMEM ? (size_t)BQ * DP * 4 : 0);
-  auto kern = attn_fwd_bf16_kernel<DP, NW, BK, OSMEM, FLASH>;
+  constexpr int smem = (NWG * 64 * DP + STAGES * 2 * BK * DP) * 2;
+  static_assert(smem <= 232448, "shared memory");
+  auto kern = attn_fwd_bf16_kernel<DP, NWG, STAGES>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  kern<<<grid, NW * 32, smem, stream>>>(p);
+  const dim3 grid((p.Sq + NWG * 64 - 1) / (NWG * 64), p.H, p.B);
+  kern<<<grid, NWG * 128, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -365,21 +441,50 @@ int launch_f32(const AttnParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// bf16 tiles by head width; the flash route stops at D = 160 (SD1.x's
-// widest head), K1 hands wider heads (to 512) to attn_wide.cu's core
+// SMs of the current device, asked of the runtime once a device
+int num_sms() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cached[kDevices];
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kDevices && (n = cached[dev].load()) > 0) return n;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = n > 0 ? n : 132;
+  if (dev >= 0 && dev < kDevices) cached[dev].store(n);
+  return n;
+}
+
+// bf16 tiles by head width, chosen on the card (tools/port_attn_tiles.py):
+// 64-key tiles, the next S issued before this P·V. Up to DP 80 (what fits
+// 128 registers a thread), four warpgroups share each K/V tile where the
+// grid still fills three quarters of the SMs with them (on an H100 SXM:
+// 0.36 against 0.38 ms for two at (4,4096,8,40), 0.035 against 0.038 at
+// (4,1024,8,80), where the grid is 128 blocks), else two, which also take
+// the wider heads. The flash route stops at D = 160 (SD1.x's widest head),
+// K1 hands wider heads (to 512) to attn_wide.cu's core.
+template <int DP>
+int launch_tiles(const AttnParams& p, cudaStream_t st) {
+  if constexpr (DP <= 80) {
+    const long long blocks = (long long)((p.Sq + 255) / 256) * p.H * p.B;
+    if (4 * blocks >= 3LL * num_sms())
+      return launch_bf16<DP, 4, 3>(p, st);
+  }
+  return launch_bf16<DP, 2, 4>(p, st);
+}
+
 template <bool FLASH>
 int dispatch(const AttnParams& p, int dtype, cudaStream_t st) {
   const int D = p.D;
   if (dtype == MOS_F32) return launch_f32<FLASH>(p, st);
   if (dtype != MOS_BF16) return -1;
-  if (D <= 16) return launch_bf16<16, 4, 64, false, FLASH>(p, st);
-  if (D <= 32) return launch_bf16<32, 4, 64, false, FLASH>(p, st);
-  if (D <= 48) return launch_bf16<48, 4, 64, false, FLASH>(p, st);
-  if (D <= 64) return launch_bf16<64, 4, 64, false, FLASH>(p, st);
-  if (D <= 80) return launch_bf16<80, 4, 64, false, FLASH>(p, st);
-  if (D <= 96) return launch_bf16<96, 4, 64, false, FLASH>(p, st);
-  if (D <= 128) return launch_bf16<128, 4, 64, false, FLASH>(p, st);
-  if (D <= 160) return launch_bf16<160, 4, 32, true, FLASH>(p, st);
+  if (D <= 16) return launch_tiles<16>(p, st);
+  if (D <= 32) return launch_tiles<32>(p, st);
+  if (D <= 48) return launch_tiles<48>(p, st);
+  if (D <= 64) return launch_tiles<64>(p, st);
+  if (D <= 80) return launch_tiles<80>(p, st);
+  if (D <= 96) return launch_tiles<96>(p, st);
+  if (D <= 128) return launch_tiles<128>(p, st);
+  if (D <= 160) return launch_tiles<160>(p, st);
   if constexpr (FLASH) {
     return -1;
   } else {

@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the sm_90a kernels (gemm_hopper.cu,
-// attn_wide.cu, flash_bwd_dkv.cu): warpgroup MMA (wgmma) wrappers, the
-// shared-memory matrix descriptors they read, and cp.async copies into the
-// swizzled tiles those descriptors describe.
+// Hopper building blocks shared by the sm_90a kernels (attn_fwd.cu,
+// gemm_hopper.cu, attn_wide.cu, flash_bwd_dkv.cu): warpgroup MMA (wgmma)
+// wrappers, the shared-memory matrix descriptors they read, and cp.async
+// copies into the swizzled tiles those descriptors describe.
 //
 // Tiles live in shared memory as "panels": a panel holds every row of a tile
 // for a slice of its contiguous dimension, one swizzle atom wide.
@@ -63,6 +63,15 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for register A operands (P in attn_fwd.cu), which an in-flight
+// wgmma still reads: kept live and in place until its wg_wait
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
 }
 // generic-proxy writes to shared memory (stores, cp.async) made visible to
 // the async proxy that wgmma reads through

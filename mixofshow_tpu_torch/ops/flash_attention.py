@@ -3,11 +3,12 @@
 Port of mixofshow_tpu/ops/flash_attention.py, the `jax.custom_vjp`
 `flash_attention` over three TPU kernels:
 
-  * `flash_fwd` (K4, `mos_flash_fwd` in csrc/attn_fwd.cu) replaces
-    `_fwd_kernel`: attention forward with an online softmax that also
-    stores the per-row log-sum-exp, (B, H, Sq) fp32;
+  * `flash_fwd` (K4, `mos_flash_fwd` in csrc/attn_fwd.cu, the wgmma kernel
+    it shares with K1) replaces `_fwd_kernel`: attention forward with an
+    online softmax that also stores the per-row log-sum-exp, (B, H, Sq)
+    fp32;
   * `flash_bwd_dkv` (K5, csrc/flash_bwd_dkv.cu) replaces `_bwd_dkv_kernel`:
-    dK and dV, one block per 64 keys streaming the query tiles;
+    dK and dV, one block per 128 keys streaming the query tiles;
   * `flash_bwd_dq` (K6, csrc/flash_bwd_dq.cu) replaces `_bwd_dq_kernel`:
     dQ, one block per 64 queries streaming the key tiles.
 
@@ -45,7 +46,7 @@ def flash_attention_supported(sq: int, sk: int, d: int) -> bool:
 
 
 # ----------------------------------------------------------- plain versions
-def _scaled_q(q):
+def scaled_q(q):
     """q · 1/√D in fp32, rounded to q's dtype, back in fp32."""
     return (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype).float()
 
@@ -54,7 +55,7 @@ def flash_fwd_plain(q, k, v):
     """(o in q's dtype, lse (B, H, Sq) fp32) of softmax(q̃ kᵀ) v, q̃ the
     scaled and rounded q; P rounds to v's dtype for the value product, as
     the kernel's does."""
-    s = torch.einsum('bqhd,bkhd->bhqk', _scaled_q(q), k.float())
+    s = torch.einsum('bqhd,bkhd->bhqk', scaled_q(q), k.float())
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).to(v.dtype).float()
     o = torch.einsum('bhqk,bkhd->bqhd', p, v.float())
@@ -70,7 +71,7 @@ def _bwd_p_ds(q, k, v, do, lse, dvec):
     """(q̃, P, dS) in fp32 from the FA2 formulas: P from the LSE, dS = P ∘
     (dO Vᵀ − Dvec); P and dS rounded to the inputs' dtype as the kernels'
     operands. Both backward kernels recompute them, and so do their twins."""
-    qs = _scaled_q(q)
+    qs = scaled_q(q)
     s = torch.einsum('bqhd,bkhd->bhqk', qs, k.float())
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum('bqhd,bkhd->bhqk', do.float(), v.float())

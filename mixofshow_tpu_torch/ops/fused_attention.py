@@ -6,7 +6,12 @@ Port of mixofshow_tpu/ops/fused_attention.py:
     attention forward of UNet self-attention with >= 1024 keys. The TPU
     version ran on q/k/v whose heads were zero-padded to 128 lanes in HBM;
     the port's projections produce the natural (B, S, H, D) layout and the
-    kernel pads D only inside its shared-memory tiles.
+    kernel pads D only inside its shared-memory tiles. For bf16 heads up to
+    160 wide it is one wgmma kernel (shared with K4, `flash_fwd`): two or
+    four warpgroups of 64 query rows share each K/V tile of a 3- or 4-stage
+    cp.async ring, P stays in registers as the A operand of P·V, and the
+    next tile's logits are in flight while this tile's softmax runs. The
+    scale is folded into q before the bf16 rounding, as the TPU kernel did.
     `attention_packed` is the processor around it: the q/k/v/out projections
     stay plain `F.linear` products, as the JAX package left them to XLA.
     Its bf16 heads wider than 160 (up to 512) run csrc/attn_wide.cu, the
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from mixofshow_tpu_torch.ops import _build
+from mixofshow_tpu_torch.ops.flash_attention import scaled_q
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
@@ -43,12 +49,12 @@ MAX_HEAD_DIM = 512
 
 # ----------------------------------------------------------- plain versions
 def attn_fwd_plain(q, k, v, kv_len: Optional[int] = None):
-    """softmax(q kᵀ / √D) v over (B, S, H, D) in fp32, keys >= kv_len
-    masked; returned in q's dtype."""
+    """softmax(q̃ kᵀ) v over (B, S, H, D) in fp32, q̃ = q / √D rounded to
+    q's dtype first (the kernel's order and the TPU kernel's), keys >=
+    kv_len masked; returned in q's dtype."""
     sk = k.shape[1]
     kv_len = sk if kv_len is None else kv_len
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
+    logits = torch.einsum('bqhd,bkhd->bhqk', scaled_q(q), k.float())
     if kv_len < sk:
         logits[..., kv_len:] = NEG_INF
     probs = torch.softmax(logits, dim=-1)
@@ -151,8 +157,8 @@ def _gemm_grouped(triples):
 def attn_fwd(q, k, v, kv_len: Optional[int] = None):
     """Attention forward over (B, S, H, D) q/k/v -> (B, Sq, H, D).
 
-    K1: CUDA tensors launch csrc/attn_fwd.cu (bf16 on tensor cores with an
-    fp32 softmax, or fp32 throughout); CPU tensors run `attn_fwd_plain`."""
+    K1: CUDA tensors launch csrc/attn_fwd.cu (bf16 on wgmma with an fp32
+    softmax, or fp32 throughout); CPU tensors run `attn_fwd_plain`."""
     kv_len = k.shape[1] if kv_len is None else kv_len
     _build.forward_only('attn_fwd', q, k, v)
     if _build.device_type(q, k, v) == 'cpu':

@@ -12,7 +12,8 @@ no device copy and no host sync per launch.
 
 The wrapper runs `region_attention_plain` for CPU tensors and launches the
 kernel for CUDA tensors; `region_attention_supported` is the routing rule
-the caller applies before either. `region_attention.launches` counts kernel
+the caller applies before either, and `region_blend` (the twin's policy,
+over any attention function) takes the layouts the kernel refuses. `region_attention.launches` counts kernel
 launches.
 """
 from __future__ import annotations
@@ -58,25 +59,33 @@ def region_attention_supported(heads: int, d: int, sk: int, nr: int) -> bool:
     return 1 <= nr <= MAX_REGIONS and d <= MAX_HEAD_DIM and sk <= MAX_KEYS
 
 
-def region_attention_plain(q, g_k, g_v, r_k, r_v, boxes_px,
-                           hw: Tuple[int, int]):
-    """The same function in plain PyTorch, fp32 throughout: full-grid
-    attention against the global and every region context, blended by the
-    box masks (the JAX package's XLA path). Returned in q's dtype."""
-    b, n, heads, d = q.shape
+def region_blend(attend, q, g_k, g_v, r_k, r_v, boxes_px,
+                 hw: Tuple[int, int]):
+    """The blend policy of regional attention, as the JAX package's XLA
+    path computes it: `attend(q, k, v)` against the global context
+    everywhere, replaced inside the boxes by the overlap-counted mean (in
+    fp32) of `attend` against each region's context. Shapes as in
+    `region_attention`; returned in the dtype `attend` gives."""
     h, w = hw
-    qf = q.float()
-    out = attn_fwd_plain(qf, g_k.float(), g_v.float())
-    acc = torch.zeros_like(out)
-    cnt = torch.zeros(n, device=q.device)
+    out = attend(q, g_k, g_v)
+    acc = torch.zeros(out.shape, dtype=torch.float32, device=out.device)
+    cnt = torch.zeros(h * w, device=out.device)
     for i, box in enumerate(np.asarray(boxes_px).reshape(-1, 4)):
-        m = box_mask(box, h, w, q.device).reshape(n)
-        acc += m[None, :, None, None] * attn_fwd_plain(
-            qf, r_k[i].float(), r_v[i].float())
+        m = box_mask(box, h, w, out.device).reshape(-1)
+        acc += m[None, :, None, None] * attend(q, r_k[i], r_v[i]).float()
         cnt += m
     blended = acc / torch.clamp(cnt, min=1.0)[None, :, None, None]
-    out = torch.where((cnt > 0)[None, :, None, None], blended, out)
-    return out.to(q.dtype)
+    return torch.where((cnt > 0)[None, :, None, None],
+                       blended.to(out.dtype), out)
+
+
+def region_attention_plain(q, g_k, g_v, r_k, r_v, boxes_px,
+                           hw: Tuple[int, int]):
+    """The same function in plain PyTorch, fp32 throughout: `region_blend`
+    of `attn_fwd_plain`. Returned in q's dtype."""
+    return region_blend(attn_fwd_plain, *(t.float() for t in (q, g_k, g_v,
+                                                              r_k, r_v)),
+                        boxes_px, hw).to(q.dtype)
 
 
 def region_attention(q, g_k, g_v, r_k, r_v, boxes_px, hw: Tuple[int, int]):

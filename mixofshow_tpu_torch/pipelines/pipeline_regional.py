@@ -16,7 +16,11 @@ globally and per region, are added to the UNet's down blocks. One call:
 Routing inside the override is a shape rule, decided before any launch:
 with regions that `region_attention_supported` takes, the attention core is
 `region_attention` between the plain to_q and to_out projections; with no
-regions, the dense 77-key `sdpa` (which the JAX package leaves to XLA).
+regions, the dense 77-key `sdpa` (which the JAX package leaves to XLA); with
+regions the kernel does not take (more than 16, heads wider than 160, more
+than 128 keys), the JAX package's XLA path in plain torch on the tensors'
+device: a global `sdpa`, one `sdpa` per region, and the overlap-counted mean
+inside the boxes.
 
 Noise: with `latents=None` the initial noise comes from a torch.Generator
 seeded with `seed`, which differs from the JAX package's noise; pass
@@ -36,7 +40,8 @@ from mixofshow_tpu_torch.models.lora import maybe
 from mixofshow_tpu_torch.models.t2i_adapter import (T2IAdapter,
                                                     preprocess_adapter_image)
 from mixofshow_tpu_torch.ops.region_attention import (
-    boxes_to_grid, region_attention, region_attention_supported)
+    boxes_to_grid, region_attention, region_attention_supported,
+    region_blend)
 from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     bind_concept_prompt)
 from mixofshow_tpu_torch.pipelines.pipeline_edlora import (OUTPUT_TYPES,
@@ -85,15 +90,14 @@ def make_region_override(boxes, heads: int, kv_table, region_kv_tables):
         k, v = (t.to(x.dtype) for t in kv_table[layer_idx])
         if not len(boxes):
             out = sdpa(q, k, v)
-        elif region_attention_supported(heads, d, k.shape[1], len(boxes)):
+        else:
             rk, rv = (t.to(x.dtype) for t in region_kv[layer_idx])
             if hw not in grids:
                 grids[hw] = boxes_to_grid(boxes, *hw)
-            out = region_attention(q, k, v, rk, rv, grids[hw], hw)
-        else:
-            raise ValueError(
-                f'{len(boxes)} regions at head dim {d} with {k.shape[1]} '
-                f'keys: outside what region_attention takes')
+            if region_attention_supported(heads, d, k.shape[1], len(boxes)):
+                out = region_attention(q, k, v, rk, rv, grids[hw], hw)
+            else:
+                out = region_blend(sdpa, q, k, v, rk, rv, grids[hw], hw)
         return dense(out.reshape(b, n, c), attn2.to_out,
                      maybe(lora, 'to_out'), alpha)
 

@@ -7,10 +7,11 @@ elsewhere. This file imports no jax, so it runs on a machine without it:
         tests/test_torch_port_cuda.py
 
 Tolerances: bf16 kernels against the fp32 plain version on the same bf16
-inputs 3e-2 (P and the output round to bf16), the bf16 flash kernels 2e-2
-of the twin's largest entry (see FLASH_BF16_REL); fp32 kernels 1e-5 (the
-flash kernels 1e-4: their sums run over up to 2048 keys in another order);
-fp32 sums relative 1e-4 of the sum of magnitudes.
+inputs 3e-2 (P and the output round to bf16); K1 in bf16 1e-2 of its bf16
+twin's largest entry (see ATTN_BF16_REL), the bf16 flash kernels 2e-2 of it
+(see FLASH_BF16_REL); fp32 kernels 1e-5 (the flash kernels 1e-4: their
+sums run over up to 2048 keys in another order); fp32 sums relative 1e-4
+of the sum of magnitudes.
 """
 import copy
 
@@ -45,12 +46,54 @@ def _randn(dev, *shape, dtype, scale=1.0, seed=0):
     return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
 
+def twin_err(got, want):
+    """Largest error of a kernel's output against its twin: relative to
+    the twin's largest entry in bf16, absolute in fp32."""
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.bfloat16:
+        return err / want.float().abs().max().item()
+    return err
+
+
+# K1 in bf16 against its twin on the same inputs (q̃ = bf16(q·scale) and the
+# output rounded to bf16 in both): the two round fp32 values that agree to
+# ~1e-4, so they differ by at most one bf16 ulp, 2^-7 of max|twin|
+ATTN_BF16_REL = 1e-2
+ATTN_TOL = {torch.bfloat16: ATTN_BF16_REL, torch.float32: TOL[torch.float32]}
+
+
+def k1_faults(q, k, v, kv_len):
+    """Planted K1 faults the bound must reject: the twin without keys
+    64-127 (one 64-key tile) and, for a ragged kv_len, without the ragged
+    last tile and without the kv_len mask."""
+    def drop(t):
+        return torch.cat((t[:, :64], t[:, 128:]), dim=1)
+    faults = [fa.attn_fwd_plain(q, drop(k), drop(v),
+                                64 + max(kv_len - 128, 0))]
+    if kv_len % 64:
+        faults.append(fa.attn_fwd_plain(q, k, v, kv_len // 64 * 64))
+    if kv_len < k.shape[1]:
+        faults.append(fa.attn_fwd_plain(q, k, v))
+    return faults
+
+
+# K1's shapes: every bf16 head-width tile (D 16 to 160, and 512 on the wide
+# core), Sq and kv_len off the 64-key and the 128- and 256-query tiles,
+# batch 1, and grids on both sides of the two/four-warpgroup rule (four
+# from 99 blocks of 256 queries on 132 SMs, up to D 80)
+ATTN_CASES = [(2, 100, 130, 2, 16, 77), (1, 256, 256, 2, 40, 256),
+              (2, 1024, 1024, 8, 80, 1024), (1, 64, 77, 3, 24, 77),
+              (1, 200, 200, 2, 160, 199), (1, 300, 300, 1, 512, 290),
+              (1, 70, 90, 2, 100, 90), (1, 333, 1030, 2, 24, 1001),
+              (1, 130, 300, 3, 100, 257), (1, 1000, 1100, 4, 80, 1037),
+              (2, 2200, 1500, 8, 40, 1433), (1, 4160, 700, 8, 16, 650),
+              (2, 1100, 600, 16, 160, 555), (1, 2100, 500, 16, 100, 480),
+              (4, 1100, 1100, 8, 80, 1037), (2, 1300, 900, 16, 24, 877),
+              (1, 2000, 700, 16, 64, 650)]
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('b,sq,sk,h,d,kv_len', [
-    (2, 100, 130, 2, 16, 77), (1, 256, 256, 2, 40, 256),
-    (2, 1024, 1024, 8, 80, 1024), (1, 64, 77, 3, 24, 77),
-    (1, 200, 200, 2, 160, 199), (1, 300, 300, 1, 512, 290),
-    (1, 70, 90, 2, 100, 90)])
+@pytest.mark.parametrize('b,sq,sk,h,d,kv_len', ATTN_CASES)
 def test_attn_fwd_matches_plain(dev, dtype, b, sq, sk, h, d, kv_len):
     q = _randn(dev, b, sq, h, d, dtype=dtype, seed=1)
     k = _randn(dev, b, sk, h, d, dtype=dtype, seed=2)
@@ -59,18 +102,28 @@ def test_attn_fwd_matches_plain(dev, dtype, b, sq, sk, h, d, kv_len):
     out = fa.attn_fwd(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert fa.attn_fwd.launches == before + 1
-    ref = fa.attn_fwd_plain(q.float(), k.float(), v.float(), kv_len)
+    ref = fa.attn_fwd_plain(q, k, v, kv_len)
     assert out.dtype == dtype and out.shape == q.shape
-    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=0)
+    assert twin_err(out, ref) <= ATTN_TOL[dtype]
+    for bad in k1_faults(q, k, v, kv_len):
+        assert twin_err(bad, ref) > ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize('b,sq,h,d', [(4, 4096, 8, 40), (4, 1024, 8, 80),
+                                      (1, 1000, 2, 160)])
+def test_attn_fwd_reruns_bit_identical(dev, b, sq, h, d):
+    q, k, v = (_randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=s)
+               for s in (1, 2, 3))
+    first = fa.attn_fwd(q, k, v)
+    assert torch.equal(fa.attn_fwd(q, k, v), first)
 
 
 def test_attn_fwd_reads_strided_views(dev):
     """q/k/v as column slices of one fused (B, S, 3C) tensor."""
     qkv = _randn(dev, 2, 300, 3 * 64, dtype=torch.bfloat16)
     q, k, v = (t.view(2, 300, 2, 32) for t in qkv.split(64, dim=-1))
-    ref = fa.attn_fwd_plain(q.float(), k.float(), v.float())
-    torch.testing.assert_close(fa.attn_fwd(q, k, v).float(), ref,
-                               atol=3e-2, rtol=0)
+    assert twin_err(fa.attn_fwd(q, k, v), fa.attn_fwd_plain(q, k, v)) \
+        <= ATTN_BF16_REL
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -260,16 +313,10 @@ FLASH_CASES = [(1, 256, 1024, 2, 16), (2, 130, 1100, 2, 40),
                (1, 1024, 1024, 8, 80), (1, 200, 1300, 2, 160),
                (1, 128, 2048, 1, 96), (1, 300, 1024, 3, 64),
                (1, 1000, 777, 2, 40), (2, 333, 1100, 1, 80),
-               (1, 77, 300, 2, 160), (1, 130, 70, 3, 16)]
-
-
-def flash_err(got, want):
-    """Largest error of a flash output against its twin: relative to the
-    twin's largest entry in bf16, absolute in fp32."""
-    err = (got.float() - want.float()).abs().max().item()
-    if want.dtype == torch.bfloat16:
-        return err / want.float().abs().max().item()
-    return err
+               (1, 77, 300, 2, 160), (1, 130, 70, 3, 16),
+               (1, 190, 1030, 2, 24), (1, 129, 1025, 2, 100),
+               (2, 1100, 1300, 16, 40), (1, 2100, 700, 16, 160),
+               (2, 770, 1100, 16, 80)]
 
 
 def flash_bound(dtype):
@@ -298,17 +345,17 @@ def test_flash_kernels_match_twins(dev, dtype, b, sq, sk, h, d):
     ro, rlse = fl.flash_fwd_plain(q, k, v)
     bound = flash_bound(dtype)
     assert o.dtype == dtype and lse.shape == (b, h, sq)
-    assert flash_err(o, ro) <= bound
+    assert twin_err(o, ro) <= bound
     torch.testing.assert_close(
         lse, rlse, rtol=0,
         atol=FLASH_LSE_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL)
     want = fl.flash_bwd_plain(q, k, v, do, lse, dvec)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype
-        assert flash_err(got, ref) <= bound
+        assert twin_err(got, ref) <= bound
     bad = fl.flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(dvec))
-    assert flash_err(bad[0], want[0]) > bound
-    assert flash_err(bad[1], want[1]) > bound
+    assert twin_err(bad[0], want[0]) > bound
+    assert twin_err(bad[1], want[1]) > bound
 
 
 def test_flash_fp32_backward_matches_autograd_of_plain(dev):
@@ -340,7 +387,7 @@ def test_flash_strided_grad_and_bitwise_reruns(dev):
     do = w.transpose(1, 2).contiguous()
     want = fl.flash_bwd_plain(q, k, v, do, lse, fl.flash_dvec(do, o))
     for a, b_ in zip(grads[0], want):
-        assert flash_err(a, b_) <= FLASH_BF16_REL
+        assert twin_err(a, b_) <= FLASH_BF16_REL
 
 
 def test_flash_raises_on_what_it_cannot_take(dev):

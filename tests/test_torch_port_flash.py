@@ -22,7 +22,7 @@ from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
 from mixofshow_tpu_torch.ops import region_attention as ra
-from test_torch_port_cuda import FLASH_CASES, flash_bound, flash_err
+from test_torch_port_cuda import FLASH_CASES, flash_bound, twin_err
 
 SHAPES = [(1, 256, 1024, 2, 16),     # the tiny UNet's res-64 layer, cut
           (2, 130, 1100, 2, 40),     # ragged Sq and Sk
@@ -104,10 +104,10 @@ def test_flash_card_bound_separates_rounding_from_a_fault(dtype, b, sq, sk,
     want = fl.flash_bwd_plain(q, k, v, do, lse, dvec)
     bad = fl.flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(dvec))
     bound = flash_bound(dtype)
-    assert flash_err(bad[0], want[0]) > bound
-    assert flash_err(bad[1], want[1]) > bound
+    assert twin_err(bad[0], want[0]) > bound
+    assert twin_err(bad[1], want[1]) > bound
     if dtype == torch.bfloat16:
-        qs = fl._scaled_q(q)
+        qs = fl.scaled_q(q)
         p = torch.exp(torch.einsum('bqhd,bkhd->bhqk', qs, k.float())
                       - lse[..., None])
         ds = p * (torch.einsum('bqhd,bkhd->bhqk', do.float(), v.float())
@@ -116,7 +116,7 @@ def test_flash_card_bound_separates_rounding_from_a_fault(dtype, b, sq, sk,
                  torch.einsum('bhqk,bqhd->bkhd', ds, qs),
                  torch.einsum('bhqk,bqhd->bkhd', p, do.float()))
         for got, ref in zip(other, want):
-            assert flash_err(got.to(dtype), ref) <= bound / 2
+            assert twin_err(got.to(dtype), ref) <= bound / 2
 
 
 def test_autograd_function_and_wrappers_on_cpu():

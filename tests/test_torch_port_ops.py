@@ -19,6 +19,7 @@ from mixofshow_tpu_torch.models import layers
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import fused_attention as pfa
 from mixofshow_tpu_torch.ops import gn_stats as pgn
+from test_torch_port_cuda import ATTN_BF16_REL, ATTN_CASES, k1_faults, twin_err
 
 
 def _t(a):
@@ -140,6 +141,57 @@ def test_attn_fwd_plain_masks_keys_past_kv_len():
     out = pfa.attn_fwd(q, k, v, kv_len=20)
     want = pfa.attn_fwd(q, k[:, :20], v[:, :20])
     torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize('d', [40, 80])
+def test_attn_fwd_plain_bf16_matches_packed_flash(d):
+    """bf16 q/k/v: K1's twin rounds q·scale to bf16 before the logits, as
+    `_packed_fwd_kernel` does, and stays under one bf16 ulp of the top
+    binade ([0.25, 0.5): 1.95e-3) from `_packed_flash` run in interpret
+    mode (bf16 matmul operands, heads zero-padded to 128 lanes). One CPU
+    thread: a one-ulp flip must not hang on the order of a parallel sum."""
+    b, s, h = 1, 1024, 2
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    dp = jfa._dp(d)
+
+    def packed(t):   # (B, S, H, D) -> (B, S, H·Dp), heads zero-padded
+        a = jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        return jnp.pad(a, ((0, 0), (0, 0), (0, 0), (0, dp - d))).reshape(
+            b, s, h * dp)
+    want = jfa._packed_flash(packed(q), packed(k), packed(v), h, d, s)
+    want = np.asarray(want.astype(jnp.float32)).reshape(b, s, h, dp)[..., :d]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = pfa.attn_fwd(q, k, v)
+    finally:
+        torch.set_num_threads(threads)
+    assert got.dtype == torch.bfloat16
+    assert np.abs(got.float().numpy() - want).max() <= 1.5e-3
+
+
+@pytest.mark.parametrize('b,sq,sk,h,d,kv_len', ATTN_CASES)
+def test_attn_card_bound_separates_rounding_from_faults(b, sq, sk, h, d,
+                                                        kv_len):
+    """The bound the card tests hold K1 to in bf16, at their shapes: the
+    kernel's own rounding (P to bf16 as the A operand of P·V, the row sums
+    of the fp32 P) stays within it of the twin; every planted fault is over
+    it."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .bfloat16() for s in ((b, sq, h, d), (b, sk, h, d),
+                                     (b, sk, h, d)))
+    ref = pfa.attn_fwd_plain(q, k, v, kv_len)
+    logits = torch.einsum('bqhd,bkhd->bhqk', pfa.scaled_q(q), k.float())
+    logits[..., kv_len:] = pfa.NEG_INF
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    other = torch.einsum('bhqk,bkhd->bqhd', p.bfloat16().float(), v.float()) \
+        / p.sum(-1).transpose(1, 2)[..., None]
+    assert twin_err(other.bfloat16(), ref) <= ATTN_BF16_REL
+    for bad in k1_faults(q, k, v, kv_len):
+        assert twin_err(bad, ref) > ATTN_BF16_REL
 
 
 def _zeros(*shape, **kw):

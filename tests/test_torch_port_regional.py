@@ -146,17 +146,33 @@ def _attn2_params(rng, c, cc):
             'to_out': lin(c, c, bias=True)}
 
 
-@pytest.mark.parametrize('h,w,boxes', ATTN_CASES + [(12, 20, [])])
-def test_region_override_matches_jax_xla_path(h, w, boxes):
+# 17 overlapping boxes, a 192-wide head and 129 keys: past K7's limits
+# (ops/region_attention.py), so the override takes the dense blend there
+SEVENTEEN = np.random.default_rng(9).uniform(0, 1, (17, 4)).astype(np.float32)
+SEVENTEEN[:, 2:] = np.maximum(SEVENTEEN[:, :2] + 0.3,
+                              SEVENTEEN[:, 2:]).clip(max=1.0)
+OVERRIDE_CASES = [pytest.param(*case, 2, 24, 77, id=f'{case[0]}-{case[1]}-'
+                               f'boxes{i}')
+                  for i, case in enumerate(ATTN_CASES + [(12, 20, [])])] + [
+    pytest.param(12, 20, SEVENTEEN.tolist(), 2, 24, 77, id='17-regions'),
+    pytest.param(8, 8, ATTN_CASES[2][2], 1, 192, 77, id='head-dim-192'),
+    pytest.param(12, 20, ATTN_CASES[1][2], 2, 24, 129, id='129-keys')]
+
+
+@pytest.mark.parametrize('h,w,boxes,heads,d,sk', OVERRIDE_CASES)
+def test_region_override_matches_jax_xla_path(h, w, boxes, heads, d, sk,
+                                              monkeypatch):
     """The whole override (projections, region attention, out-projection)
     against JAX `make_region_override(use_kernel=False)`; no regions takes
-    the dense attention."""
+    the dense attention, and layouts K7 does not take (more than 16 regions,
+    D > 160, more than 128 keys) the dense blend on any device: the routing
+    is `region_attention_supported`, a shape rule."""
     rng = np.random.default_rng(1)
-    heads, c, cc, b = 2, 48, 32, 2
+    c, cc, b = heads * d, 32, 2
     p = _attn2_params(rng, c, cc)
     x = rng.normal(0, 1, (b, h * w, c)).astype(np.float32)
-    ctx = rng.normal(0, 1, (b, 77, cc)).astype(np.float32)
-    embeds = [rng.normal(0, 1, (b, 16, 77, cc)).astype(np.float32)
+    ctx = rng.normal(0, 1, (b, sk, cc)).astype(np.float32)
+    embeds = [rng.normal(0, 1, (b, 16, sk, cc)).astype(np.float32)
               for _ in boxes]
     layer = 3
     want = jpr.make_region_override(
@@ -170,26 +186,33 @@ def test_region_override_matches_jax_xla_path(h, w, boxes):
     def kv(context):
         k = torch.nn.functional.linear(context, attn2.to_k.weight)
         v = torch.nn.functional.linear(context, attn2.to_v.weight)
-        return k.view(b, 77, heads, -1), v.view(b, 77, heads, -1)
+        return k.view(b, sk, heads, d), v.view(b, sk, heads, d)
+    calls = []
+    kernel = ppr.region_attention
+    monkeypatch.setattr(ppr, 'region_attention',
+                        lambda *a: calls.append(1) or kernel(*a))
     override = ppr.make_region_override(
         boxes, heads, {layer: kv(ct)},
         [{layer: kv(torch.from_numpy(e[:, layer]))} for e in embeds])
     with torch.no_grad():
         got = override(attn2, xt, ct, layer, 'down', (h, w), None, 1.0)
+    assert bool(calls) == (len(boxes) > 0 and pra.region_attention_supported(
+        heads, d, sk, len(boxes)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
 
 
-def test_region_override_raises_outside_the_kernels_limits():
-    attn2 = Attention(8, 8, device='cpu')
-    kv = (torch.zeros(1, 77, 1, 8),) * 2
-    override = ppr.make_region_override([[0, 0, 1, 1]] * 17, 1, {0: kv},
-                                        [{0: kv}] * 17)
-    with pytest.raises(ValueError, match='outside what region_attention'):
-        override(attn2, torch.zeros(1, 4, 8), None, 0, 'down', (2, 2), None,
-                 1)
+def test_region_attention_supported_limits():
+    """The shape rule between K7 and the dense blend: 1-16 regions, heads
+    up to 160 wide, up to 128 keys."""
     assert not pra.region_attention_supported(8, 40, 129, 3)
     assert not pra.region_attention_supported(8, 320, 77, 3)
     assert pra.region_attention_supported(8, 160, 77, 3)
+    assert pra.region_attention_supported(8, 160, 128, 16)
+    assert not pra.region_attention_supported(8, 40, 77, 17)
+    assert not pra.region_attention_supported(8, 40, 77, 0)
+
+
+def test_region_attention_raises_on_an_unsupported_device():
     with pytest.raises(ValueError, match='unsupported device'):
         t = torch.zeros(1, 4, 1, 8, device='meta')
         pra.region_attention(t, t, t, t[None], t[None], [[0, 0, 1, 1]],

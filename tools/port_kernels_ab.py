@@ -1,7 +1,9 @@
-"""Time the port's K3 (attention_block) and K5 (flash_bwd_dkv) at their
-main-path shapes, on the card, for the copy of `mixofshow_tpu_torch` under
-<root>: the repository itself, or an older commit unpacked beside it.
+"""Time the port's K1 (attn_fwd), K3 (attention_block), K4 (flash_fwd) and
+K5 (flash_bwd_dkv) at their main-path shapes, on the card, for the copy of
+`mixofshow_tpu_torch` under <root>: the repository itself, or an older
+commit unpacked beside it.
 
+    mkdir -p experiments/parent
     git archive <commit> mixofshow_tpu_torch | tar -x -C experiments/parent
     python tools/port_kernels_ab.py experiments/parent parent
     python tools/port_kernels_ab.py . change
@@ -51,6 +53,12 @@ w = [rn(512, 512, scale=512 ** -0.5) for _ in range(4)]
 bs = [rn(512, scale=0.1) for _ in range(4)]
 args = (x, x, *w, bs[3], 1, *bs[:3])
 out['K3 (2,4096,512)'] = ms(lambda: fa.attention_block(*args))
+for (b, sq, h, d) in [(4, 4096, 8, 40), (4, 1024, 8, 80)]:
+    q, k, v = (rn(b, sq, h, d) for _ in range(3))
+    out[f'K1 {(b, sq, h, d)}'] = ms(lambda: fa.attn_fwd(q, k, v))
+for (b, sq, h, d) in [(2, 4096, 8, 40), (2, 1024, 8, 80)]:
+    q, k, v = (rn(b, sq, h, d) for _ in range(3))
+    out[f'K4 {(b, sq, h, d)}'] = ms(lambda: fl.flash_fwd(q, k, v))
 for (b, sq, h, d) in [(2, 4096, 8, 40), (2, 1024, 8, 80)]:
     q, k, v, do = (rn(b, sq, h, d) for _ in range(4))
     o, lse = fl.flash_fwd(q, k, v)
