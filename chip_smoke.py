@@ -19,7 +19,11 @@ line when any fails, or when no CUDA device is visible):
                 (library_ms), K3 also by its three launches (the grouped
                 q/k/v GEMM, the wide core, the out-projection); K1's
                 planted faults (a 64-key tile, the ragged last tile, the
-                kv_len mask left out of the twin) over its bf16 bound; the
+                kv_len mask left out of the twin) over its bf16 bound; K7
+                also at three overlapping boxes, its planted faults (a
+                region's context left out, the global context inside a
+                box, a box moved one pixel row, the overlap count ignored)
+                over its bf16 bound; the
                 flash kernels (K4-K6) also in fp32 against
                 autograd of the plain attention, a backward rerun that must
                 be bit-identical, and a planted fault (the plain backward
@@ -123,11 +127,16 @@ from mixofshow_tpu_torch.pipelines.trainer_edlora import EDLoRATrainer
 from mixofshow_tpu_torch.text import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
 
-# bf16 kernels against the fp32 plain version on the same bf16 inputs:
-# P and the output are rounded to bf16 (2^-8 relative), so a few 1e-3 is
-# expected; 3e-2 is the bound the JAX suite uses for its bf16 attention
-# kernels (tests/test_ops.py).
+# K3 bf16 against the fp32 plain version on the same bf16 inputs: P and the
+# output are rounded to bf16 (2^-8 relative), so a few 1e-3 is expected;
+# 3e-2 is the bound the JAX suite uses for its bf16 attention kernels
+# (tests/test_ops.py).
 ATTN_BOUND = 3e-2
+# K7 bf16 against its twin on the same bf16 inputs (fp32 math, the output
+# rounded to bf16): the kernel also rounds P to bf16 for P·V, so the two
+# differ by about one bf16 ulp of the output, at most 2^-7 of max|twin|;
+# the planted faults (_region_faults) must come out over it
+REGION_BF16_REL = 1e-2
 # K1 bf16 against its twin on the same bf16 inputs (q̃ = bf16(q·scale) and
 # the output rounded to bf16 in both): the largest error relative to the
 # twin's largest entry. The two round the same fp32 values to within ~1e-4,
@@ -205,6 +214,9 @@ REGIONS = [('a <potter1> <potter2>, in a jacket', 'low quality',
             [0.02, 0.35, 0.95, 0.62]),
            ('a <thanos1> <thanos2>, with armor', 'low quality',
             [0.02, 0.68, 0.95, 0.97])]
+# three overlapping boxes, two on the grid's edges (phase 3's K7 check)
+OVERLAP_BOXES = [[0.0, 0.0, 0.6, 0.6], [0.3, 0.3, 0.9, 0.9],
+                 [0.2, 0.5, 1.0, 1.0]]
 CONCEPTS = '<potter1> <potter2>+<hermione1> <hermione2>+<thanos1> <thanos2>'
 ROOT = Path(__file__).resolve().parent
 POSE = ROOT / 'datasets' / 'validation_spatial_condition' / \
@@ -398,19 +410,21 @@ def phase_kernels(dev):
     check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_block disagrees')
     res['attn_block'] = row(err, ms, pms, bnd, lib)
     # K7 at the regional path's cross-attention layers: 2 images x CFG,
-    # 8 heads, 77 keys, the three boxes of REGIONS
+    # 8 heads, 77 keys, the three boxes of REGIONS, then three overlapping
+    # boxes at the largest layer
     boxes = [box for _, _, box in REGIONS]
-    for hw, d in [(64, 40), (32, 80), (16, 160), (8, 160)]:
+    for hw, d, layout in [(64, 40, boxes), (32, 80, boxes), (16, 160, boxes),
+                          (8, 160, boxes), (64, 40, OVERLAP_BOXES)]:
         b, h, sk = 4, 8, 77
         q = randn(b, hw * hw, h, d)
         gk, gv = randn(b, sk, h, d), randn(b, sk, h, d)
         rk, rv = randn(3, b, sk, h, d), randn(3, b, sk, h, d)
-        px = ra.boxes_to_grid(boxes, hw, hw)
+        px = ra.boxes_to_grid(layout, hw, hw)
         args = (q, gk, gv, rk, rv, px, (hw, hw))
         out = ra.region_attention(*args)
-        ref = ra.region_attention_plain(*(a.float() if torch.is_tensor(a)
-                                          else a for a in args))
-        err = (out.float() - ref).abs().max().item()
+        ref = ra.region_attention_plain(*args)   # the bf16 twin
+        err, rel = _max_err(out, ref), _flash_err(out, ref)
+        fault = min(_flash_err(f, ref) for f in _region_faults(*args))
         ms = cuda_ms(lambda: ra.region_attention(*args))
         pms = cuda_ms(lambda: ra.region_attention_plain(*args))
         # this layout's work: a pixel attends each region it lies in, or
@@ -419,12 +433,19 @@ def phase_kernels(dev):
         contexts = torch.clamp(cnt, min=1).sum().item()
         bnd = least_time(nbytes(q, gk, gv, rk, rv, out),
                     attn_flops(b, h, contexts, sk, d, 2), PEAK_BF16)
+        which = 'overlapping' if layout is OVERLAP_BOXES else 'REGIONS'
         print(f'[kernels] region_attn (B,N,H,D)=({b},{hw}x{hw},{h},{d}) '
-              f'Sk={sk} R=3: max_abs_err {err:.3e} (bound {ATTN_BOUND}); '
-              f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
-              f'ms ({bnd[1]})', flush=True)
-        check(math.isfinite(err) and err <= ATTN_BOUND,
+              f'Sk={sk} R=3 {which}: '
+              f'error vs twin {rel:.3e} of max|twin| (bound '
+              f'{REGION_BF16_REL}), max_abs_err {err:.3e}; planted fault '
+              f'{fault:.3e} (must exceed {REGION_BF16_REL}); kernel {ms:.4f} '
+              f'ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]})',
+              flush=True)
+        check(math.isfinite(rel) and rel <= REGION_BF16_REL,
               'region_attn disagrees')
+        check(fault > REGION_BF16_REL,
+              f'region_attn bound {REGION_BF16_REL} does not reject the '
+              'planted fault')
         res.setdefault('region_attn', row(err, ms, pms, bnd))
     res.update(flash_kernel_checks(dev))
     res['gn_apply'] = apply_kernel_checks(dev)
@@ -515,10 +536,34 @@ def _attn_faults(q, k, v, kv_len):
     return faults
 
 
+def _region_faults(q, gk, gv, rk, rv, px, hw):
+    """Planted K7 faults, on the twin: the largest box's context left out,
+    the global context attended inside that box, the box moved down one
+    pixel row and, where boxes overlap, the sum over the boxes in place of
+    their mean."""
+    h, w = hw
+    masks = [ra.box_mask(box, h, w, q.device) for box in px]
+    big = int(np.argmax([float(m.sum()) for m in masks]))
+    keep = [i for i in range(len(px)) if i != big]
+    rk_g, rv_g = rk.clone(), rv.clone()
+    rk_g[big], rv_g[big] = gk, gv
+    moved = px.copy()
+    moved[big] += np.asarray([1, 0, 1, 0], moved.dtype)
+    plain = ra.region_attention_plain
+    faults = [plain(q, gk, gv, rk[keep], rv[keep], px[keep], hw),
+              plain(q, gk, gv, rk_g, rv_g, px, hw),
+              plain(q, gk, gv, rk, rv, moved, hw)]
+    cnt = sum(masks).reshape(1, -1, 1, 1)
+    if cnt.max() > 1:
+        ref = plain(q, gk, gv, rk, rv, px, hw)
+        faults.append((ref.float() * torch.clamp(cnt, min=1)).to(ref.dtype))
+    return faults
+
+
 def _flash_err(got, want):
     """Largest error against the twin: relative to the twin's largest entry
-    in bf16 (FLASH_BF16_REL, ATTN_BF16_REL), absolute in fp32
-    (FLASH_F32_BOUND)."""
+    in bf16 (FLASH_BF16_REL, ATTN_BF16_REL, REGION_BF16_REL), absolute in
+    fp32 (FLASH_F32_BOUND)."""
     err = _max_err(got, want)
     if want.dtype == torch.bfloat16:
         return err / want.float().abs().max().item()

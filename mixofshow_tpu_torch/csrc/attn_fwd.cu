@@ -49,8 +49,6 @@
 // wgmma core (K1 only).
 //   * fp32: a SIMT kernel (one warp per query row, 32 keys per tile) that
 //     computes everything in fp32, for fp32 reference runs on the card.
-#include <atomic>
-
 #include "wgmma.cuh"
 
 // the wgmma core for D in (160, 512], bf16 (attn_wide.cu)
@@ -78,13 +76,7 @@ constexpr float kNeg = -1e30f;  // masked logit, as the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x on the special-function unit alone; results below 2^-126 flush to
-// zero (exp2f adds the instructions that keep them, for every logit)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using mos::exp2_ftz;
 
 // ------------------------------------------------------------------- bf16
 constexpr int BK = 64;  // keys a K/V tile
@@ -441,19 +433,6 @@ int launch_f32(const AttnParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// SMs of the current device, asked of the runtime once a device
-int num_sms() {
-  constexpr int kDevices = 64;
-  static std::atomic<int> cached[kDevices];
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < kDevices && (n = cached[dev].load()) > 0) return n;
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  n = n > 0 ? n : 132;
-  if (dev >= 0 && dev < kDevices) cached[dev].store(n);
-  return n;
-}
-
 // bf16 tiles by head width, chosen on the card (tools/port_attn_tiles.py):
 // 64-key tiles, the next S issued before this P·V. Up to DP 80 (what fits
 // 128 registers a thread), four warpgroups share each K/V tile where the
@@ -466,7 +445,7 @@ template <int DP>
 int launch_tiles(const AttnParams& p, cudaStream_t st) {
   if constexpr (DP <= 80) {
     const long long blocks = (long long)((p.Sq + 255) / 256) * p.H * p.B;
-    if (4 * blocks >= 3LL * num_sms())
+    if (4 * blocks >= 3LL * mos::num_sms())
       return launch_bf16<DP, 4, 3>(p, st);
   }
   return launch_bf16<DP, 2, 4>(p, st);

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the sm_90a kernels (attn_fwd.cu,
-// gemm_hopper.cu, attn_wide.cu, flash_bwd_dkv.cu): warpgroup MMA (wgmma)
+// gemm_hopper.cu, attn_wide.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu; the
+// cp.async copies also region_attn.cu): warpgroup MMA (wgmma)
 // wrappers, the shared-memory matrix descriptors they read, and cp.async
 // copies into the swizzled tiles those descriptors describe.
 //

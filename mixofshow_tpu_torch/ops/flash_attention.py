@@ -10,7 +10,8 @@ Port of mixofshow_tpu/ops/flash_attention.py, the `jax.custom_vjp`
   * `flash_bwd_dkv` (K5, csrc/flash_bwd_dkv.cu) replaces `_bwd_dkv_kernel`:
     dK and dV, one block per 128 keys streaming the query tiles;
   * `flash_bwd_dq` (K6, csrc/flash_bwd_dq.cu) replaces `_bwd_dq_kernel`:
-    dQ, one block per 64 queries streaming the key tiles.
+    dQ, one block per 128 queries (two warpgroups) streaming the key
+    tiles.
 
 All three fold the softmax scale into q before the bf16 rounding, as the TPU
 kernels did, and the plain twins round in the same order. P is recomputed

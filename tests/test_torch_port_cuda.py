@@ -212,34 +212,112 @@ def test_tiny_pipeline_card_matches_cpu(dev):
 
 THREE_BOXES = [[0.02, 0.05, 0.95, 0.30], [0.02, 0.35, 0.95, 0.62],
                [0.02, 0.68, 0.95, 0.97]]
+# three overlapping boxes, two on the grid's edges
+OVERLAP_BOXES = [[0.0, 0.0, 0.6, 0.6], [0.3, 0.3, 0.9, 0.9],
+                 [0.2, 0.5, 1.0, 1.0]]
+
+# K7 in bf16 against its bf16 twin (fp32 math on the same bf16 inputs, the
+# output rounded to bf16): the kernel also rounds P to bf16 for P·V, so the
+# two differ by about one bf16 ulp of the output, at most 2^-7 of
+# max|twin|; the planted faults (k7_faults) must come out over it
+REGION_BF16_REL = 1e-2
+REGION_TOL = {torch.bfloat16: REGION_BF16_REL,
+              torch.float32: TOL[torch.float32]}
 
 
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', [
-    (4, 64, 64, 8, 40, 77, THREE_BOXES),       # the SD1.5 layers at 512²
+def k7_faults(q, gk, gv, rk, rv, px, hw):
+    """Planted K7 faults the bound must reject, on the twin: the largest
+    box's context left out, the global context attended inside that box,
+    the box moved down one pixel row and, where boxes overlap, the sum
+    over the boxes in place of their mean (none when no box covers a
+    pixel)."""
+    h, w = hw
+    px = np.asarray(px).reshape(-1, 4)
+    masks = [ra.box_mask(box, h, w, q.device) for box in px]
+    sizes = [float(m.sum()) for m in masks]
+    if not any(sizes):
+        return []
+    big = int(np.argmax(sizes))
+    keep = [i for i in range(len(px)) if i != big]
+    plain = ra.region_attention_plain
+    rk_g, rv_g = rk.clone(), rv.clone()
+    rk_g[big], rv_g[big] = gk, gv
+    moved = px.copy()
+    moved[big] += np.asarray([1, 0, 1, 0], moved.dtype)
+    faults = [plain(q, gk, gv, rk[keep], rv[keep], px[keep], hw),
+              plain(q, gk, gv, rk_g, rv_g, px, hw),
+              plain(q, gk, gv, rk, rv, moved, hw)]
+    cnt = sum(masks).reshape(1, -1, 1, 1)
+    if cnt.max() > 1:
+        ref = plain(q, gk, gv, rk, rv, px, hw)
+        faults.append((ref.float() * torch.clamp(cnt, min=1)).to(ref.dtype))
+    return faults
+
+
+# K7's shapes: the SD1.5 regional layers at 512² (2 images x CFG) with the
+# three boxes and with three overlapping ones; every bf16 head width (D 16
+# to 160: 16, 32, 48, 64, 80, 128 and 160 wide tiles), 77 and 128 keys (80
+# and 128 key tiles) and 5; 1 and 16 regions; boxes on the grid's edges,
+# overlapping and one that covers no pixel; grids off the 16-pixel tile
+# (tiles of 16, 8, 4 and 2 rows) and off every run of tiles a block takes;
+# every branch of the block rule (launch_runs in csrc/region_attn.cu)
+REGION_CASES = [
+    (4, 64, 64, 8, 40, 77, THREE_BOXES),
     (4, 32, 32, 8, 80, 77, THREE_BOXES),
     (4, 16, 16, 8, 160, 77, THREE_BOXES),
     (4, 8, 8, 8, 160, 77, THREE_BOXES),
+    (4, 64, 64, 8, 40, 77, OVERLAP_BOXES),
     (2, 12, 20, 2, 24, 77, [[0.0, 0.0, 1.0, 0.5], [0.25, 0.25, 0.875, 1.0],
                             [0.1, 0.2, 0.9, 0.8]]),   # ragged, overlapping
     (1, 9, 7, 3, 64, 100, [[0.5, 0.5, 0.5, 0.9], [0.0, 0.0, 1.0, 1.0]]),
-    (2, 8, 16, 1, 16, 5, [[0.3, 0.0, 0.7, 0.6]])])
-def test_region_attention_matches_plain(dev, dtype, b, h, w, heads, d, sk,
-                                        boxes):
+    (2, 8, 16, 1, 16, 5, [[0.3, 0.0, 0.7, 0.6]]),
+    (2, 33, 31, 4, 100, 128, OVERLAP_BOXES),
+    (2, 40, 48, 8, 128, 128, [[0.0, 0.0, 1.0, 1.0]]),
+    (2, 17, 45, 3, 80, 5, np.random.default_rng(3).uniform(
+        0, 1, (16, 4)).round(2).tolist()),
+    (1, 26, 26, 16, 160, 128, OVERLAP_BOXES),
+    (2, 48, 48, 8, 48, 77, THREE_BOXES),
+    (3, 40, 40, 8, 40, 77, [[0.1, 0.0, 0.4, 1.0]]),
+    (1, 5, 30, 2, 64, 77, [[0.2, 0.1, 0.8, 0.5], [0.0, 0.4, 1.0, 1.0]]),
+    (2, 3, 50, 2, 40, 77, [[0.0, 0.3, 0.7, 0.9]])]
+
+
+def _region_inputs(dev, dtype, b, h, w, heads, d, sk, boxes):
     q = _randn(dev, b, h * w, heads, d, dtype=dtype, seed=1)
     gk, gv = (_randn(dev, b, sk, heads, d, dtype=dtype, seed=s)
               for s in (2, 3))
     rk, rv = (_randn(dev, len(boxes), b, sk, heads, d, dtype=dtype, seed=s)
               for s in (4, 5))
-    px = ra.boxes_to_grid(boxes, h, w)
+    return q, gk, gv, rk, rv, ra.boxes_to_grid(boxes, h, w), (h, w)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', REGION_CASES)
+def test_region_attention_matches_plain(dev, dtype, b, h, w, heads, d, sk,
+                                        boxes):
+    """K7 against its twin on the same inputs: bf16 within REGION_BF16_REL
+    of max|twin|, with every planted fault over it; fp32 absolute."""
+    args = _region_inputs(dev, dtype, b, h, w, heads, d, sk, boxes)
+    q = args[0]
     before = ra.region_attention.launches
-    out = ra.region_attention(q, gk, gv, rk, rv, px, (h, w))
+    out = ra.region_attention(*args)
     torch.cuda.synchronize()
     assert ra.region_attention.launches == before + 1
-    ref = ra.region_attention_plain(q.float(), gk.float(), gv.float(),
-                                    rk.float(), rv.float(), px, (h, w))
+    ref = ra.region_attention_plain(*args)
     assert out.dtype == dtype and out.shape == q.shape
-    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=0)
+    assert twin_err(out, ref) <= REGION_TOL[dtype]
+    if dtype == torch.bfloat16:
+        for bad in k7_faults(*args):
+            assert twin_err(bad, ref) > REGION_BF16_REL
+
+
+@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', [
+    REGION_CASES[0], REGION_CASES[3], REGION_CASES[4], REGION_CASES[10]])
+def test_region_attention_reruns_bit_identical(dev, b, h, w, heads, d, sk,
+                                               boxes):
+    args = _region_inputs(dev, torch.bfloat16, b, h, w, heads, d, sk, boxes)
+    first = ra.region_attention(*args)
+    assert torch.equal(ra.region_attention(*args), first)
 
 
 def test_region_attention_raises_on_what_it_cannot_take(dev):
@@ -356,6 +434,40 @@ def test_flash_kernels_match_twins(dev, dtype, b, sq, sk, h, d):
     bad = fl.flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(dvec))
     assert twin_err(bad[0], want[0]) > bound
     assert twin_err(bad[1], want[1]) > bound
+
+
+# K6's shapes: every bf16 head-width tile (D 16 to 160: 16, 32, 48, 64, 80,
+# 96, 128 and 160 wide), Sq and Sk off the 64-key tile and the query block
+# (1000 x 1100 among them), Sq below one 64-query tile, Sk below one key
+# tile, the training path's two shapes, and grids of 16 to 512 blocks
+DQ_CASES = [(2, 1000, 1100, 8, 40), (1, 50, 1030, 2, 16),
+            (1, 77, 300, 2, 24), (2, 300, 200, 3, 64), (1, 513, 1024, 4, 80),
+            (1, 130, 40, 2, 96), (1, 250, 700, 2, 100), (1, 64, 64, 1, 128),
+            (2, 190, 1100, 2, 160), (2, 4096, 4096, 8, 40),
+            (2, 1024, 1024, 8, 80), (1, 2100, 700, 16, 160)]
+
+
+@pytest.mark.parametrize('b,sq,sk,h,d', DQ_CASES)
+def test_flash_bwd_dq_matches_twin(dev, b, sq, sk, h, d):
+    """K6 in bf16 against its twin within FLASH_BF16_REL of max|twin|, the
+    planted fault (the twin without Dvec) over it, and a rerun
+    bit-identical."""
+    q, do = (_randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=s)
+             for s in (1, 4))
+    k, v = (_randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=s)
+            for s in (2, 3))
+    o, lse = fl.flash_fwd(q, k, v)
+    dvec = fl.flash_dvec(do, o)
+    before = fl.flash_bwd_dq.launches
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, dvec)
+    torch.cuda.synchronize()
+    assert fl.flash_bwd_dq.launches == before + 1
+    want = fl.flash_bwd_dq_plain(q, k, v, do, lse, dvec)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert twin_err(dq, want) <= FLASH_BF16_REL
+    bad = fl.flash_bwd_dq_plain(q, k, v, do, lse, torch.zeros_like(dvec))
+    assert twin_err(bad, want) > FLASH_BF16_REL
+    assert torch.equal(fl.flash_bwd_dq(q, k, v, do, lse, dvec), dq)
 
 
 def test_flash_fp32_backward_matches_autograd_of_plain(dev):

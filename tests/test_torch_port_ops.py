@@ -3,6 +3,7 @@ version against the JAX function it replaces (Pallas in interpret mode, as
 tests/test_ops.py runs it), plus the CPU dispatch and the argument checks
 that guard the CUDA launches. The kernels themselves run on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py)."""
+import math
 import shutil
 
 import jax
@@ -19,7 +20,10 @@ from mixofshow_tpu_torch.models import layers
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import fused_attention as pfa
 from mixofshow_tpu_torch.ops import gn_stats as pgn
-from test_torch_port_cuda import ATTN_BF16_REL, ATTN_CASES, k1_faults, twin_err
+from mixofshow_tpu_torch.ops import region_attention as pra
+from test_torch_port_cuda import (ATTN_BF16_REL, ATTN_CASES, REGION_BF16_REL,
+                                  REGION_CASES, k1_faults, k7_faults,
+                                  twin_err)
 
 
 def _t(a):
@@ -192,6 +196,38 @@ def test_attn_card_bound_separates_rounding_from_faults(b, sq, sk, h, d,
     assert twin_err(other.bfloat16(), ref) <= ATTN_BF16_REL
     for bad in k1_faults(q, k, v, kv_len):
         assert twin_err(bad, ref) > ATTN_BF16_REL
+
+
+@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', REGION_CASES)
+def test_region_card_bound_separates_rounding_from_faults(b, h, w, heads, d,
+                                                          sk, boxes):
+    """The bound the card tests and chip_smoke.py hold K7 to in bf16, at
+    their shapes: the kernel's own rounding (P to bf16 as the A operand of
+    P·V, normalised by the row sums of the fp32 P, the blend in fp32)
+    stays within it of the twin; every planted fault is over it."""
+    rng = np.random.default_rng(7)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .bfloat16()
+    q = randn(b, h * w, heads, d)
+    gk, gv = randn(b, sk, heads, d), randn(b, sk, heads, d)
+    rk, rv = (randn(len(boxes), b, sk, heads, d) for _ in range(2))
+    px = pra.boxes_to_grid(boxes, h, w)
+    ref = pra.region_attention_plain(q, gk, gv, rk, rv, px, (h, w))
+
+    def attend(q, k, v):
+        s = torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(q.shape[-1])
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return torch.einsum('bhqk,bkhd->bqhd', p.bfloat16().float(), v) \
+            / p.sum(-1).transpose(1, 2)[..., None]
+    other = pra.region_blend(attend, *(t.float() for t in (q, gk, gv, rk, rv)),
+                             px, (h, w)).bfloat16()
+    assert twin_err(other, ref) <= REGION_BF16_REL
+    faults = k7_faults(q, gk, gv, rk, rv, px, (h, w))
+    assert faults
+    for bad in faults:
+        assert twin_err(bad, ref) > REGION_BF16_REL
 
 
 def _zeros(*shape, **kw):

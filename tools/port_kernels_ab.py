@@ -1,5 +1,7 @@
-"""Time the port's K1 (attn_fwd), K3 (attention_block), K4 (flash_fwd) and
-K5 (flash_bwd_dkv) at their main-path shapes, on the card, for the copy of
+"""Time the port's K1 (attn_fwd), K3 (attention_block), K4 (flash_fwd), K5
+(flash_bwd_dkv), K6 (flash_bwd_dq) and K7 (region_attention, the three
+boxes of chip_smoke.py's REGIONS) at their main-path shapes, on the card,
+for the copy of
 `mixofshow_tpu_torch` under <root>: the repository itself, or an older
 commit unpacked beside it.
 
@@ -21,6 +23,7 @@ sys.path.insert(0, os.path.abspath(sys.argv[1]))
 import torch  # noqa: E402
 from mixofshow_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from mixofshow_tpu_torch.ops import flash_attention as fl  # noqa: E402
+from mixofshow_tpu_torch.ops import region_attention as ra  # noqa: E402
 
 assert fa.__file__.startswith(os.path.abspath(sys.argv[1])), fa.__file__
 dev = torch.device('cuda')
@@ -65,4 +68,15 @@ for (b, sq, h, d) in [(2, 4096, 8, 40), (2, 1024, 8, 80)]:
     dvec = fl.flash_dvec(do, o)
     out[f'K5 {(b, sq, h, d)}'] = ms(
         lambda: fl.flash_bwd_dkv(q, k, v, do, lse, dvec))
+    out[f'K6 {(b, sq, h, d)}'] = ms(
+        lambda: fl.flash_bwd_dq(q, k, v, do, lse, dvec))
+# chip_smoke.py's REGIONS, as normalized (start_h, start_w, end_h, end_w)
+boxes = [[0.02, 0.05, 0.95, 0.30], [0.02, 0.35, 0.95, 0.62],
+         [0.02, 0.68, 0.95, 0.97]]
+for hw, d in [(64, 40), (32, 80), (16, 160), (8, 160)]:
+    b, h, sk = 4, 8, 77
+    q, gk, gv = rn(b, hw * hw, h, d), rn(b, sk, h, d), rn(b, sk, h, d)
+    rk, rv = rn(3, b, sk, h, d), rn(3, b, sk, h, d)
+    args = (q, gk, gv, rk, rv, ra.boxes_to_grid(boxes, hw, hw), (hw, hw))
+    out[f'K7 {(b, hw * hw, h, d)}'] = ms(lambda: ra.region_attention(*args))
 print('OLDNEW', json.dumps(out), flush=True)
