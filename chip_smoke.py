@@ -10,7 +10,10 @@ line when any fails, or when no CUDA device is visible):
                 process per source, in parallel) and JIT-compiles the Triton
                 kernels (K2, and K8 with and without SiLU), timing each;
   3. kernels  — each kernel against its plain PyTorch version on the same
-                inputs at the main paths' shapes, error against a stated
+                inputs at the main paths' shapes (K1, K2, K3 and K8 also at
+                a validation batch of 4 prompts: K1 at batch 8 with CFG, K2
+                and K8 at the decoder's six GroupNorm shapes with their
+                launch-weighted sums over a decode), error against a stated
                 bound, both device times from CUDA events (the calls
                 queued behind a sleep kernel), the least time the card
                 could take (bound_ms: bytes over 3.35 TB/s or operations
@@ -58,15 +61,40 @@ line when any fails, or when no CUDA device is visible):
                 options/train/EDLoRA/real/EDLoRA_hermione_B4_Repeat500.yml
                 (bf16, batch 2 at 512x512, rank-4 LoRA on text and UNet
                 attention, the reference learning rates, attention
-                regularization), overriding only the data (a seeded
-                synthetic concept, 4 images 640x512 with captions and
-                masks, in a temporary directory), random:sd15 weights, 6
-                steps, no validation, a log line every step and one save
-                after the last. Checks a finite loss at every step; that the
-                embedding, the text LoRA and the UNet LoRA (every attn1
-                leaf included) moved; that the saved .pth reloads with the
-                reference keys; and per step 10 launches each of K4, K5,
-                K6, no K1, one K3 and the encoder's K2 and K8 counts;
+                regularization, val_during_save true), overriding only the
+                data (a seeded synthetic concept, 4 images 640x512 with
+                captions and masks, in a temporary directory), random:sd15
+                weights, 6 steps with a save every 3 (SAVE_FREQ), the
+                validation set cut to 1 sample a prompt (8 prompts x 3
+                alphas, batches of 4, 50 steps, CFG 7.5) and a log line
+                every step. Checks a finite loss at every step; per step 10
+                launches each of K4, K5, K6, no K1, one K3 and the
+                encoder's K2 and K8 counts; per validation request 500 K1,
+                30 K2, 30 K8 and one K3 (VAL_REQUEST); that the embedding,
+                the text LoRA and the UNet LoRA (every attn1 leaf included)
+                moved; the deltas and train_state-{3,6,latest}.pt, the
+                latest delta reloading with the reference keys; and the
+                PNGs and grid of every Iters-<tag>_Alpha-<alpha> sweep.
+                Prints the steady s/step over the steps that did not save,
+                each sweep's seconds and the peak device memory;
+  7b. resume  — the same CLI on the same config with validation off and
+                --resume <experiment>/models/train_state-3.pt: the relaunch
+                archives phase 7's experiment and the CLI follows the
+                checkpoint there. Checks that the state it loaded equals
+                the file bitwise (every tensor, the AdamW moments and step,
+                the schedule, emb_frozen and step), steps 4 to 6 with phase
+                7's launches a step and finite losses, the logged learning
+                rates equal to phase 7's at those steps and the final ones
+                to phase 7's exactly;
+  7c. sweep   — test_edlora.main on phase 7's last delta with
+                options/test/EDLoRA/real/EDLoRA_hermione_test.yml
+                (random:sd15 at the training seed, the validation set cut to
+                1 sample a prompt): 6 requests of VAL_REQUEST launches, 8
+                PNGs and a grid an alpha; alpha 0 bit-identical to an
+                EDLoRAPipeline without LoRA on the same concept table and
+                latents; alpha 1.0 within one uint8 level of phase 7's last
+                validation at alpha 1.0 (the share that is identical
+                printed);
   8. fusion   — gradient fusion at SD1.5 width through the port's CLI
                 (gradient_fusion.main, in-process) at fuse.sh's operating
                 point (exact solve, 20 spatial steps, 512, bf16 capture) on
@@ -83,13 +111,15 @@ line when any fails, or when no CUDA device is visible):
                 regional request of phase 6's layout on the fused model
                 (K7 16 x 50 times, images not constant).
 Phases 5 and 6 also check that no flash kernel launched. Then one JSON line
-with the kernels (launches: phases 5, 6, 7 and 8 together), the nvidia-smi
-line, and the last line {"ok": true, "device": {...}}.
+with the kernels (launches: phases 5 to 8 together, 7b and 7c included), the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
 import copy
 import json
+import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -105,9 +135,11 @@ from torch import nn
 
 import torch.nn.functional as F
 
-from mixofshow_tpu_torch import gradient_fusion, ops, train_edlora, zoo
+from mixofshow_tpu_torch import (gradient_fusion, ops, test_edlora,
+                                 train_edlora, zoo)
 from mixofshow_tpu_torch.convert import (convert_edlora_delta,
                                          load_edlora_delta, save_edlora_delta)
+from mixofshow_tpu_torch.data import PromptDataset
 from mixofshow_tpu_torch.fusion import compose_concepts
 from mixofshow_tpu_torch.fusion.gradient_fusion import layer_kernel
 from mixofshow_tpu_torch.models import (CLIPTextConfig, CLIPTextModel, UNet,
@@ -124,8 +156,10 @@ from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
                                            bind_concept_prompt,
                                            init_concepts)
 from mixofshow_tpu_torch.pipelines.trainer_edlora import EDLoRATrainer
+from mixofshow_tpu_torch.pipelines.validation import visual_validation
 from mixofshow_tpu_torch.text import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
+from mixofshow_tpu_torch.utils.options import resolve_compute_dtype
 
 # K3 bf16 against the fp32 plain version on the same bf16 inputs: P and the
 # output are rounded to bf16 (2^-8 relative), so a few 1e-3 is expected;
@@ -176,6 +210,15 @@ APPLY_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-6}
 # sum 1024 terms in another order
 APPLY_BWD_BOUND = 1e-5
 TRAIN_STEPS = 6
+# phase 7 saves (and validates) every SAVE_FREQ steps and at the end; its
+# validation set is cut to VAL_SAMPLES samples a prompt
+SAVE_FREQ = 3
+VAL_SAMPLES = 1
+# one validation request of 4 prompts (CFG batch 8), 50 steps: K1 at the
+# UNet's 10 self-attentions of 1024 and 4096 keys an eval, K2 and K8 at the
+# decoder's 30 GroupNorms, K3 at its mid-block attention
+VAL_REQUEST = {'attn_fwd': 10 * 50, 'gn_spatial_sums': 30, 'gn_apply': 30,
+               'attn_block': 1}
 FUSION_STEPS = 20
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s,
 # dense bf16 tensor-core and fp32 CUDA-core operations/s
@@ -203,6 +246,11 @@ KERNEL_META = {
     'gn_apply': ('triton', 'mixofshow_tpu_torch/ops/gn_stats_triton.py',
                  'mixofshow_tpu/ops/gn_stats.py:101'),
 }
+# the VAE decoder's GroupNorm inputs (C, H, W) at 512x512 and how many of
+# its 30 norms have each (each launches K2 and K8 once)
+DECODE_NORMS = [((512, 64, 64), 11), ((512, 128, 128), 6),
+                ((512, 256, 256), 1), ((256, 256, 256), 5),
+                ((256, 512, 512), 1), ((128, 512, 512), 6)]
 FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
 PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block',
                       'gn_apply')
@@ -222,9 +270,13 @@ ROOT = Path(__file__).resolve().parent
 POSE = ROOT / 'datasets' / 'validation_spatial_condition' / \
     'multi-characters' / 'real_pose' / 'potter_hermione_thanos_pose.png'
 # the repository's ED-LoRA training config; phase 7 overrides only the data,
-# the weights, the length, validation and logging
+# the weights, the length, the save frequency, the validation samples and
+# logging
 TRAIN_YML = ROOT / 'options' / 'train' / 'EDLoRA' / 'real' / \
     'EDLoRA_hermione_B4_Repeat500.yml'
+# its validation sweep's config, for the test_edlora phase
+TEST_YML = ROOT / 'options' / 'test' / 'EDLoRA' / 'real' / \
+    'EDLoRA_hermione_test.yml'
 
 
 def check(cond, msg):
@@ -322,10 +374,13 @@ def phase_kernels(dev):
     res = {}
     # K1 at the UNet's res-64 and res-32 self-attention (CFG batch of 2
     # prompts), a ragged kv_len, and the widest head of its wgmma kernel
+    # and the validation sweeps' (CFG batch of 4 prompts)
     for b, s, h, d, sk, kvl in [(4, 4096, 8, 40, 4096, 4096),
                                 (4, 1024, 8, 80, 1024, 1024),
                                 (2, 1000, 8, 40, 1100, 1037),
-                                (2, 256, 8, 160, 1024, 1024)]:
+                                (2, 256, 8, 160, 1024, 1024),
+                                (8, 4096, 8, 40, 4096, 4096),
+                                (8, 1024, 8, 80, 1024, 1024)]:
         q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
         out = fa.attn_fwd(q, k, v, kvl)
         ref = fa.attn_fwd_plain(q, k, v, kvl)
@@ -349,66 +404,86 @@ def phase_kernels(dev):
               f'attn_fwd bound {ATTN_BF16_REL} does not reject the planted '
               'fault')
         res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
-    # K2 at the VAE decoder's GroupNorm inputs (2 images): NHWC
-    # (2,64,64,512), (2,256,256,256), (2,512,512,128) held NCHW
-    for shape in [(2, 128, 512, 512), (2, 512, 64, 64), (2, 256, 256, 256)]:
-        x = randn(*shape)
-        s1, s2 = gs.spatial_sums(x)
-        r1, r2 = gs.spatial_sums_plain(x)
-        mag = x.float().abs().sum(dim=(2, 3))
-        err = max((s1 - r1).abs().max().item(), (s2 - r2).abs().max().item())
-        rel = max(((s1 - r1).abs() / mag).max().item(),
-                  ((s2 - r2).abs() / r2).max().item())
-        ms = cuda_ms(lambda: gs.spatial_sums(x))
-        pms = cuda_ms(lambda: gs.spatial_sums_plain(x))
-        bnd = least_time(nbytes(x, s1, s2), 3 * x.numel(), PEAK_FP32)
-        print(f'[kernels] gn_spatial_sums (B,C,H,W)={shape}: max_abs_err '
-              f'{err:.3e}, relative {rel:.3e} (bound {SUMS_BOUND}); kernel '
-              f'{ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms '
-              f'({bnd[1]})', flush=True)
-        check(math.isfinite(rel) and rel <= SUMS_BOUND,
-              'gn_spatial_sums disagrees')
-        res.setdefault('gn_spatial_sums', row(err, ms, pms, bnd))
-    # K3 at the VAE mid-block: 2 images, 64x64 tokens, C=512, one head
+    # K2 at the VAE decoder's GroupNorm inputs, NCHW, each with its
+    # launches a decode (DECODE_NORMS): 2 images (the main path) and 4 (a
+    # validation batch); the launch-weighted sums over a whole decode
+    for batch in (2, 4):
+        tot = {'ms': 0.0, 'bound': 0.0, 'n': 0}
+        for chw, n in DECODE_NORMS:
+            shape = (batch, *chw)
+            x = randn(*shape)
+            s1, s2 = gs.spatial_sums(x)
+            r1, r2 = gs.spatial_sums_plain(x)
+            mag = x.float().abs().sum(dim=(2, 3))
+            err = max((s1 - r1).abs().max().item(),
+                      (s2 - r2).abs().max().item())
+            rel = max(((s1 - r1).abs() / mag).max().item(),
+                      ((s2 - r2).abs() / r2).max().item())
+            ms = cuda_ms(lambda: gs.spatial_sums(x))
+            pms = cuda_ms(lambda: gs.spatial_sums_plain(x))
+            bnd = least_time(nbytes(x, s1, s2), 3 * x.numel(), PEAK_FP32)
+            print(f'[kernels] gn_spatial_sums (B,C,H,W)={shape} ({n} a '
+                  f'decode): max_abs_err {err:.3e}, relative {rel:.3e} '
+                  f'(bound {SUMS_BOUND}); kernel {ms:.4f} ms, plain '
+                  f'{pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]})',
+                  flush=True)
+            check(math.isfinite(rel) and rel <= SUMS_BOUND,
+                  'gn_spatial_sums disagrees')
+            tot['ms'] += n * ms
+            tot['bound'] += n * bnd[0]
+            tot['n'] += n
+            if shape == (2, 128, 512, 512):
+                res['gn_spatial_sums'] = row(err, ms, pms, bnd)
+        print(f'[kernels] gn_spatial_sums over one decode of {batch} '
+              f'images ({tot["n"]} launches): {tot["ms"]:.4f} ms, least '
+              f'{tot["bound"]:.4f} ms ({tot["bound"] / tot["ms"]:.1%} of '
+              f'the least time)', flush=True)
+    # K3 at the VAE mid-block: 64x64 tokens, C=512, one head; 2 images
+    # (the main path) and 4 (a validation batch)
     c = 512
-    x = randn(2, 4096, c)
-    w = [randn(c, c, scale=c ** -0.5) for _ in range(4)]
-    bias = [randn(c, scale=0.1) for _ in range(4)]
-    args = (x, x, *w, bias[3], 1, *bias[:3])
-    out = fa.attention_block(*args)
-    ref = fa.attention_block_plain(*(a.float() if torch.is_tensor(a) else a
-                                     for a in args))
-    err = (out.float() - ref).abs().max().item()
-    ms = cuda_ms(lambda: fa.attention_block(*args))
-    pms = cuda_ms(lambda: fa.attention_block_plain(*args))
+    for b in (2, 4):
+        x = randn(b, 4096, c)
+        w = [randn(c, c, scale=c ** -0.5) for _ in range(4)]
+        bias = [randn(c, scale=0.1) for _ in range(4)]
+        args = (x, x, *w, bias[3], 1, *bias[:3])
+        out = fa.attention_block(*args)
+        ref = fa.attention_block_plain(*(a.float() if torch.is_tensor(a)
+                                         else a for a in args))
+        err = (out.float() - ref).abs().max().item()
+        ms = cuda_ms(lambda: fa.attention_block(*args))
+        pms = cuda_ms(lambda: fa.attention_block_plain(*args))
 
-    def library():  # four F.linear and SDPA, one head
-        q, k, v = (F.linear(x, w[i], bias[i])[:, None] for i in range(3))
-        o = F.scaled_dot_product_attention(q, k, v)[:, 0]
-        return F.linear(o, w[3], bias[3])
+        def library():  # four F.linear and SDPA, one head
+            q, k, v = (F.linear(x, w[i], bias[i])[:, None]
+                       for i in range(3))
+            o = F.scaled_dot_product_attention(q, k, v)[:, 0]
+            return F.linear(o, w[3], bias[3])
 
-    bnd = least_time(nbytes(x, *w, *bias, out),
-                4 * 2 * 2 * 4096 * c * c + attn_flops(2, 1, 4096, 4096, c, 2),
-                PEAK_BF16)
-    lib = cuda_ms(library)
-    # its three launches apart: the grouped q/k/v GEMM, the core, the
-    # out-projection
-    x2 = x.view(-1, c)
-    qkv = [(x2, w[i], bias[i], c ** -0.5 if i == 0 else 1.0)
-           for i in range(3)]
-    q, k, v = (t.view(2, 4096, 1, c) for t in fa._gemm_grouped(qkv))
-    o = torch.empty_like(q)
-    parts = {'q/k/v GEMM': cuda_ms(lambda: fa._gemm_grouped(qkv)),
-             'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, 4096, 1.0)),
-             'out GEMM': cuda_ms(lambda: fa._gemm_grouped(
-                 [(o.view(-1, c), w[3], bias[3], 1.0)]))}
-    print(f'[kernels] attn_block (B,S,C)=(2,4096,512) heads=1 with biases: '
-          f'max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel {ms:.4f} ms ('
-          + ', '.join(f'{n} {t:.4f}' for n, t in parts.items())
-          + f' ms), plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
-          f'four F.linear + SDPA {lib:.4f} ms', flush=True)
-    check(math.isfinite(err) and err <= ATTN_BOUND, 'attn_block disagrees')
-    res['attn_block'] = row(err, ms, pms, bnd, lib)
+        bnd = least_time(nbytes(x, *w, *bias, out),
+                         4 * 2 * b * 4096 * c * c +
+                         attn_flops(b, 1, 4096, 4096, c, 2), PEAK_BF16)
+        lib = cuda_ms(library)
+        # its three launches apart: the grouped q/k/v GEMM, the core, the
+        # out-projection
+        x2 = x.view(-1, c)
+        qkv = [(x2, w[i], bias[i], c ** -0.5 if i == 0 else 1.0)
+               for i in range(3)]
+        q, k, v = (t.view(b, 4096, 1, c) for t in fa._gemm_grouped(qkv))
+        o = torch.empty_like(q)
+        parts = {'q/k/v GEMM': cuda_ms(lambda: fa._gemm_grouped(qkv)),
+                 'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, 4096,
+                                                         1.0)),
+                 'out GEMM': cuda_ms(lambda: fa._gemm_grouped(
+                     [(o.view(-1, c), w[3], bias[3], 1.0)]))}
+        print(f'[kernels] attn_block (B,S,C)=({b},4096,512) heads=1 with '
+              f'biases: max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel '
+              f'{ms:.4f} ms ('
+              + ', '.join(f'{n} {t:.4f}' for n, t in parts.items())
+              + f' ms), plain {pms:.4f} ms, least {bnd[0]:.4f} ms '
+              f'({bnd[1]}), four F.linear + SDPA {lib:.4f} ms', flush=True)
+        check(math.isfinite(err) and err <= ATTN_BOUND,
+              'attn_block disagrees')
+        res.setdefault('attn_block', row(err, ms, pms, bnd, lib))
     # K7 at the regional path's cross-attention layers: 2 images x CFG,
     # 8 heads, 77 keys, the three boxes of REGIONS, then three overlapping
     # boxes at the largest layer
@@ -455,16 +530,25 @@ def phase_kernels(dev):
 def apply_kernel_checks(dev):
     """K8 against its twin at the VAE decoder's GroupNorm inputs (2 images,
     NCHW): the mid-block attention's norm (no act) first, then the resnets'
-    SiLU norms at 64², 256² and 512², bf16 and fp32; planted faults (a and
-    b swapped, the SiLU dropped) must come out over the bf16 bound; the
-    backward against autograd of the twin. Returns the row of the first
-    shape, with torch.addcmul as its library call."""
+    SiLU norms at 64², 256² and 512², bf16 and fp32; then 4 images (a
+    validation batch) in bf16, the attention's norm and the SiLU norms at
+    each of the decoder's six shapes, and their launch-weighted sum over a
+    decode; planted faults (a and b swapped, the SiLU dropped) must come
+    out over the bf16 bound; the backward against autograd of the twin.
+    Returns the row of the first shape, with torch.addcmul as its library
+    call."""
     g = torch.Generator(device=dev).manual_seed(11)
     first = None
-    for shape, act in [((2, 512, 64, 64), 'none'), ((2, 512, 64, 64), 'silu'),
-                       ((2, 256, 256, 256), 'silu'),
-                       ((2, 128, 512, 512), 'silu')]:
-        for dt in (torch.bfloat16, torch.float32):
+    val = [((4, 512, 64, 64), 'none', (torch.bfloat16,))] + [
+        ((4, *chw), 'silu', (torch.bfloat16,)) for chw, _ in DECODE_NORMS]
+    tot = {'ms': 0.0, 'bound': 0.0}
+    for shape, act, dts in [
+            ((2, 512, 64, 64), 'none', (torch.bfloat16, torch.float32)),
+            ((2, 512, 64, 64), 'silu', (torch.bfloat16, torch.float32)),
+            ((2, 256, 256, 256), 'silu', (torch.bfloat16, torch.float32)),
+            ((2, 128, 512, 512), 'silu', (torch.bfloat16, torch.float32))] \
+            + val:
+        for dt in dts:
             x = torch.randn(shape, generator=g, device=dev).to(dt)
             a = torch.randn(shape[:2], generator=g, device=dev) * 0.3 + 1.0
             b = torch.randn(shape[:2], generator=g, device=dev) * 0.3
@@ -497,6 +581,13 @@ def apply_kernel_checks(dev):
                   'gn_apply bound does not reject the planted fault')
             if first is None:
                 first = row(err, ms, pms, bnd, lib)
+            if shape[0] == 4 and act == 'silu':
+                n = dict(DECODE_NORMS)[shape[1:]]
+                tot['ms'] += n * ms
+                tot['bound'] += n * bnd[0]
+    print(f'[kernels] gn_apply (SiLU) over one decode of 4 images (30 '
+          f'launches, bf16): {tot["ms"]:.4f} ms, least {tot["bound"]:.4f} ms '
+          f'({tot["bound"] / tot["ms"]:.1%} of the least time)', flush=True)
     # the backward (plain torch) behind the kernel's forward, fp32
     x = torch.randn((2, 64, 32, 32), generator=g, device=dev)
     a = torch.randn((2, 64), generator=g, device=dev) * 0.3 + 1.0
@@ -915,10 +1006,7 @@ def phase_wiring_train(dev):
           + f' (bound {WIRING_TRAIN_BOUND}); launches {counts}', flush=True)
     check(all(math.isfinite(v) and v <= WIRING_TRAIN_BOUND
               for v in errs.values()), 'wiring train: card and CPU disagree')
-    want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
-            'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
-            'gn_spatial_sums': _encoder_norms(gpu.vae),
-            'gn_apply': _encoder_norms(gpu.vae)}
+    want = _step_launches(gpu)
     check(counts == want, f'wiring train: launches {counts}, expected {want}')
 
 
@@ -1009,7 +1097,9 @@ def phase_wiring_fusion(dev):
 
 def _write_concept(root: Path, seed: int = 0):
     """4 seeded synthetic 640x512 images with captions and masks, the
-    concept list, and TRAIN_YML pointed at them; returns the YAML's path."""
+    concept list, and TRAIN_YML pointed at them with phase 7's cuts (the
+    length, saves every SAVE_FREQ steps, VAL_SAMPLES samples a validation
+    prompt); returns the YAML's path."""
     rng = np.random.default_rng(seed)
     dirs = {n: root / n for n in ('img', 'mask', 'caption')}
     for d in dirs.values():
@@ -1032,109 +1122,361 @@ def _write_concept(root: Path, seed: int = 0):
         'instance_prompt': '<TOK>', 'instance_data_dir': str(dirs['img']),
         'caption_dir': str(dirs['caption']), 'mask_dir': str(dirs['mask'])}]))
     opt = yaml.safe_load(TRAIN_YML.read_text())
+    check(opt['val']['val_during_save'] is True,
+          f'{TRAIN_YML.name} no longer validates during saves')
     opt['manual_seed'] = seed
     train = opt['datasets']['train']
     train['concept_list'] = str(concept)
     train['dataset_enlarge_ratio'] = TRAIN_STEPS * \
         train['batch_size_per_gpu'] // 4
+    val = opt['datasets']['val_vis']
+    val['prompts'] = str(ROOT / val['prompts'])
+    val['num_samples_per_prompt'] = VAL_SAMPLES
     opt['models']['pretrained_path'] = 'random:sd15'
     opt['path'] = {'experiments_root': str(root / 'experiment')}
-    opt['val']['val_during_save'] = False
-    # one save, after the last step's mark: no save inside a timed step
-    opt['logger'] = {'print_freq': 1, 'save_checkpoint_freq': TRAIN_STEPS}
+    opt['logger'] = {'print_freq': 1, 'save_checkpoint_freq': SAVE_FREQ}
     path = root / 'edlora_sd15.yml'
     path.write_text(yaml.safe_dump(opt))
     return path
 
 
-def phase_train(dev, card, delta_path):
-    """Phase 7; the run's last delta is copied to `delta_path`."""
-    root = Path(tempfile.mkdtemp(prefix='mos_chip_train_'))
-    try:
-        yml = _write_concept(root)
-        marks = []
+class _LogLines(logging.Handler):
+    """The port's log messages, and the learning rates of its iteration
+    lines by step."""
 
-        def on_step(step, loss_dict):
-            torch.cuda.synchronize()
-            marks.append((step, time.perf_counter(), ops.launch_counts(),
-                          {k: float(v) for k, v in loss_dict.items()}))
-            if step == 0:
-                torch.cuda.reset_peak_memory_stats()
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self.logger = logging.getLogger('mixofshow_tpu_torch')
 
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+    def lrs(self):
+        out = {}
+        for line in self.lines:
+            m = re.search(r'Iter:\s*([\d,]+), lr:\(([^)]*)\)', line)
+            if m:
+                out[int(m.group(1).replace(',', ''))] = m.group(2)
+        return out
+
+
+def _run_train(argv, dev, report=None):
+    """train_edlora.main with a mark (step, host time, launch counts, loss)
+    at each on_step call; returns (trainer, state, marks, peak device
+    memory from the first mark, the log's learning rates)."""
+    marks = []
+
+    def on_step(step, loss_dict):
+        torch.cuda.synchronize()
+        marks.append((step, time.perf_counter(), ops.launch_counts(),
+                      {k: float(v) for k, v in loss_dict.items()}))
+        if len(marks) == 1:
+            torch.cuda.reset_peak_memory_stats()
+
+    with _LogLines() as log:
         trainer, state, _ = train_edlora.main(
-            ['-opt', str(yml), '--device', str(dev)], on_step=on_step)
-        t_total = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        check([m[0] for m in marks] == list(range(TRAIN_STEPS + 1)),
-              f'train: steps {[m[0] for m in marks]}')
-        enc_norms = _encoder_norms(trainer.vae)
-        want = {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
-                'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
-                'gn_spatial_sums': enc_norms, 'gn_apply': enc_norms}
-        step_s = []
-        for prev, cur in zip(marks, marks[1:]):
-            per = {k: cur[2][k] - prev[2][k] for k in cur[2]}
-            check(per == {**per, **want},
-                  f'train: step {cur[0]} launches {per}, expected {want}')
+            argv + ['--device', str(dev)], on_step=on_step, report=report)
+    torch.cuda.synchronize()
+    marks.append(('end', time.perf_counter(), ops.launch_counts(), {}))
+    return trainer, state, marks, torch.cuda.max_memory_allocated(), \
+        log.lrs()
+
+
+def _step_launches(trainer):
+    """A train step's launches: 10 of each flash kernel, one K3, the VAE
+    encoder's K2 and K8 counts, no K1."""
+    enc_norms = _encoder_norms(trainer.vae)
+    return {'flash_fwd': 10, 'flash_bwd_dkv': 10, 'flash_bwd_dq': 10,
+            'attn_fwd': 0, 'attn_block': 1, 'region_attn': 0,
+            'gn_spatial_sums': enc_norms, 'gn_apply': enc_norms}
+
+
+def _sub(a, b, times=1):
+    return {k: a[k] - times * b.get(k, 0) for k in a}
+
+
+def _check_pngs(vis_dir, tags, alphas, n):
+    """Each `<tag>Alpha-<alpha>` directory holds n PNGs and has its grid."""
+    for tag in tags:
+        for alpha in alphas:
+            d = vis_dir / f'{tag}Alpha-{alpha}'
+            pngs = sorted(p.name for p in d.glob('*.png'))
+            check(len(pngs) == n and
+                  (vis_dir / f'{d.name}---composed.jpg').exists(),
+                  f'{d}: {len(pngs)} PNGs, grid '
+                  f'{(vis_dir / f"{d.name}---composed.jpg").exists()}')
+
+
+def phase_train(dev, card, root, delta_path):
+    """Phase 7 in `root` (kept for the resume and test_edlora phases); the
+    run's last delta is copied to `delta_path`. Returns the launches and
+    what the next phases compare with."""
+    yml = _write_concept(root)
+    opt = yaml.safe_load(yml.read_text())
+    alphas = opt['val']['alpha_list']
+    prompts = len(PromptDataset(opt['datasets']['val_vis']))
+    per_sweep = len(alphas) * math.ceil(
+        prompts / opt['datasets']['val_vis']['batch_size_per_gpu'])
+    ops.reset_launch_counts()
+    report = {}
+    t0 = time.perf_counter()
+    trainer, state, marks, peak, lrs = _run_train(['-opt', str(yml)], dev,
+                                                  report)
+    t_total = time.perf_counter() - t0
+    steps = [m[0] for m in marks[:-1]]
+    check(steps == list(range(TRAIN_STEPS + 1)), f'train: steps {steps}')
+    want = _step_launches(trainer)
+    saves = [s['tag'] for s in report['saves']]
+    check(saves == [SAVE_FREQ * i for i in range(1, TRAIN_STEPS //
+                                                   SAVE_FREQ + 1)]
+          + ['latest'], f'train: saves {saves}')
+    step_s, sweeps = [], []
+    # a save at step k (after the mark of k) lands in the interval to k+1;
+    # the saves at the last step and 'latest' after the last mark
+    for prev, cur in zip(marks, marks[1:]):
+        per = _sub(cur[2], prev[2])
+        n_sweeps = 1 + (TRAIN_STEPS % SAVE_FREQ == 0) if cur[0] == 'end' \
+            else int(prev[0] > 0 and prev[0] % SAVE_FREQ == 0)
+        train_part = _sub(per, VAL_REQUEST, per_sweep * n_sweeps)
+        if cur[0] != 'end':
+            check(train_part == {**train_part, **want},
+                  f'train: step {cur[0]} launches {per}, expected {want} '
+                  f'and {n_sweeps} sweeps of {per_sweep} x {VAL_REQUEST}')
             check(all(math.isfinite(v) for v in cur[3].values()),
                   f'train: step {cur[0]} loss {cur[3]}')
-            step_s.append(cur[1] - prev[1])
+            if n_sweeps == 0 and cur[0] > 1:
+                step_s.append(cur[1] - prev[1])
+        else:
+            check(all(v == 0 for v in train_part.values()),
+                  f'train: launches after the last step {per}, expected '
+                  f'{n_sweeps} sweeps of {per_sweep} x {VAL_REQUEST}')
+        sweeps.append(n_sweeps)
+    check(sum(sweeps) == len(saves), f'train: sweeps {sweeps}')
+    first_step = marks[1][1] - marks[0][1]
 
-        # every trainable group moved, every attn1 LoRA leaf included
-        init, now = trainer.trainable_init, state.trainable
-        moved = {'embedding': (now['concept_embedding'] -
-                               init['concept_embedding']).abs().max().item()}
-        for key, name in (('text_lora', 'text LoRA'),
-                          ('unet_lora', 'UNet LoRA')):
-            a, b = flatten_lora(init[key]), flatten_lora(now[key])
-            moved[name] = min((b[p][n] - a[p][n]).abs().max().item()
-                              for p in a for n in ('down', 'up'))
-        attn1 = [p for p in flatten_lora(now['unet_lora']) if '/attn1/' in p]
-        moved['attn1 leaves'] = min(
-            (flatten_lora(now['unet_lora'])[p][n] -
-             flatten_lora(init['unet_lora'])[p][n]).abs().max().item()
-            for p in attn1 for n in ('down', 'up'))
-        check(len(attn1) == 64 and all(v > 0 for v in moved.values()),
-              f'train: a trainable group did not move: {moved}')
+    # every trainable group moved, every attn1 LoRA leaf included
+    init, now = trainer.trainable_init, state.trainable
+    moved = {'embedding': (now['concept_embedding'] -
+                           init['concept_embedding']).abs().max().item()}
+    for key, name in (('text_lora', 'text LoRA'),
+                      ('unet_lora', 'UNet LoRA')):
+        a, b = flatten_lora(init[key]), flatten_lora(now[key])
+        moved[name] = min((b[p][n] - a[p][n]).abs().max().item()
+                          for p in a for n in ('down', 'up'))
+    attn1 = [p for p in flatten_lora(now['unet_lora']) if '/attn1/' in p]
+    moved['attn1 leaves'] = min(
+        (flatten_lora(now['unet_lora'])[p][n] -
+         flatten_lora(init['unet_lora'])[p][n]).abs().max().item()
+        for p in attn1 for n in ('down', 'up'))
+    check(len(attn1) == 64 and all(v > 0 for v in moved.values()),
+          f'train: a trainable group did not move: {moved}')
 
-        # the saved delta reloads with the reference keys and the values
-        models = root / 'experiment' / 'models'
-        saved = sorted(os.listdir(models))
-        delta = torch.load(models / 'edlora_model-latest.pth',
-                           map_location='cpu', weights_only=True)['params']
-        te, un = delta['text_encoder'], delta['unet']
-        key_q = ('down_blocks.0.attentions.0.transformer_blocks.0.attn1.'
-                 'to_q.lora_up.weight')
-        tokens = sorted(trainer.new_concept_cfg)
-        check(saved == [f'edlora_model-{TRAIN_STEPS}.pth',
-                        'edlora_model-latest.pth']
-              and set(delta['new_concept_embedding']) == set(tokens)
-              and delta['new_concept_embedding'][tokens[0]].shape ==
-              (16, 768) and len(te) == 12 * 4 * 2 and len(un) == 16 * 8 * 2
-              and 'text_model.encoder.layers.11.self_attn.out_proj.'
-                  'lora_down.weight' in te
-              and torch.equal(un[key_q], flatten_lora(now['unet_lora'])[
-                  'down_blocks/0/attentions/0/attn1/to_q']['up'].detach()
-                  .cpu()),
-              f'train: saved delta {saved}, {len(te)} text and {len(un)} '
-              'UNet keys')
-        shutil.copy(models / 'edlora_model-latest.pth', delta_path)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    steady = sum(step_s[1:]) / len(step_s[1:])
-    losses = [round(m[3]['loss'], 5) for m in marks[1:]]
+    # the saves: deltas with the reference keys, train states, the sweeps'
+    # PNGs and grids
+    exp = root / 'experiment'
+    models = exp / 'models'
+    saved = sorted(os.listdir(models))
+    tags = [str(t) for t in saves]
+    check(saved == sorted([f'edlora_model-{t}.pth' for t in tags] +
+                          [f'train_state-{t}.pt' for t in tags]),
+          f'train: saved {saved}')
+    delta = torch.load(models / 'edlora_model-latest.pth',
+                       map_location='cpu', weights_only=True)['params']
+    te, un = delta['text_encoder'], delta['unet']
+    key_q = ('down_blocks.0.attentions.0.transformer_blocks.0.attn1.'
+             'to_q.lora_up.weight')
+    tokens = sorted(trainer.new_concept_cfg)
+    check(set(delta['new_concept_embedding']) == set(tokens)
+          and delta['new_concept_embedding'][tokens[0]].shape == (16, 768)
+          and len(te) == 12 * 4 * 2 and len(un) == 16 * 8 * 2
+          and 'text_model.encoder.layers.11.self_attn.out_proj.'
+              'lora_down.weight' in te
+          and torch.equal(un[key_q], flatten_lora(now['unet_lora'])[
+              'down_blocks/0/attentions/0/attn1/to_q']['up'].detach().cpu()),
+          f'train: saved delta with {len(te)} text and {len(un)} UNet keys')
+    _check_pngs(exp / 'visualization', [f'Iters-{t}_' for t in tags],
+                alphas, prompts)
+    shutil.copy(models / 'edlora_model-latest.pth', delta_path)
+
+    steady = sum(step_s) / len(step_s)
+    losses = [round(m[3]['loss'], 5) for m in marks[1:-1]]
+    val_s = [round(s['validation_s'], 3) for s in report['saves']]
     print(f'[train] SD1.5 ED-LoRA through train_edlora.main, bf16, batch 2, '
-          f'512x512, {TRAIN_STEPS} steps: first step {step_s[0]:.3f} s, '
-          f'steady {steady:.4f} s/step ({1 / steady:.3f} steps/s; steps '
-          + ', '.join(f'{t:.3f}' for t in step_s) + f' s); whole run '
-          f'{t_total:.2f} s; peak device memory '
-          f'{peak / 2 ** 30:.2f} GiB (max_memory_allocated over the steps);'
-          f' losses {losses}; smallest change {moved}; launches per step '
-          f'{want}; saved {saved}; {card}', flush=True)
-    total = marks[-1][2]
-    return {k: total[k] - marks[0][2][k] for k in total}
+          f'512x512, {TRAIN_STEPS} steps, saves at {saves} each validating '
+          f'{len(alphas)} alphas x {prompts} prompts (cut: '
+          f'num_samples_per_prompt {VAL_SAMPLES}) x '
+          f'{opt["val"]["sample"]["num_inference_steps"]} steps, CFG '
+          f'{opt["val"]["sample"]["guidance_scale"]}, '
+          f'{per_sweep} requests a sweep: first step {first_step:.3f} s, '
+          f'steady {steady:.4f} s/step over the steps without a save '
+          f'({1 / steady:.3f} steps/s; steps '
+          + ', '.join(f'{t:.3f}' for t in step_s) + ' s); validation sweeps '
+          f'{val_s} s ({[round(v / per_sweep, 3) for v in val_s]} s a '
+          f'request of 4 prompts), saves '
+          f'{[round(s["save_s"], 3) for s in report["saves"]]} s; whole run '
+          f'{t_total:.2f} s; peak device memory {peak / 2 ** 30:.2f} GiB '
+          f'(max_memory_allocated from the first step on, validation '
+          f'included); losses {losses}; smallest change {moved}; launches '
+          f'per step {want}, per validation request {VAL_REQUEST}; saved '
+          f'{saved}; {card}', flush=True)
+    total = _sub(marks[-1][2], marks[0][2])
+    return total, {'lrs': lrs, 'final_lrs': state.lr_schedule.get_last_lr(),
+                   'want': want, 'alphas': alphas, 'prompts': prompts,
+                   'per_sweep': per_sweep}
+
+
+def phase_resume(dev, card, root, phase7):
+    """Phase 7's run again from its train_state-3.pt, with validation off:
+    the relaunch archives phase 7's experiment and the CLI follows the
+    checkpoint there. The loaded state must equal the file bitwise, the
+    steps be 4 to 6 with phase 7's launches and logged learning rates."""
+    opt = yaml.safe_load((root / 'edlora_sd15.yml').read_text())
+    opt['val']['val_during_save'] = False
+    yml = root / 'edlora_sd15_resume.yml'
+    yml.write_text(yaml.safe_dump(opt))
+    ckpt = root / 'experiment' / 'models' / f'train_state-{SAVE_FREQ}.pt'
+    ops.reset_launch_counts()
+    report = {}
+    t0 = time.perf_counter()
+    _, state, marks, peak, lrs = _run_train(
+        ['-opt', str(yml), '--resume', str(ckpt)], dev, report)
+    t_total = time.perf_counter() - t0
+    archived = sorted(root.glob('experiment_archived_*'))
+    check(len(archived) == 1, f'resume: archived roots {archived}')
+    saved = torch.load(archived[0] / 'models' / ckpt.name,
+                       map_location='cpu', weights_only=True)
+    _same_state(report['resumed'], saved)
+    steps = [m[0] for m in marks[:-1]]
+    check(steps == list(range(SAVE_FREQ, TRAIN_STEPS + 1)),
+          f'resume: steps {steps}')
+    for prev, cur in zip(marks, marks[1:-1]):
+        per = _sub(cur[2], prev[2])
+        check(per == {**per, **phase7['want']},
+              f'resume: step {cur[0]} launches {per}')
+        check(all(math.isfinite(v) for v in cur[3].values()),
+              f'resume: step {cur[0]} loss {cur[3]}')
+    resumed_steps = list(range(SAVE_FREQ + 1, TRAIN_STEPS + 1))
+    check(sorted(lrs) == resumed_steps and
+          all(lrs[s] == phase7['lrs'][s] for s in resumed_steps),
+          f'resume: logged learning rates {lrs}, phase 7 {phase7["lrs"]}')
+    final = state.lr_schedule.get_last_lr()
+    check(final == phase7['final_lrs'] and state.step == TRAIN_STEPS,
+          f'resume: final learning rates {final} at micro-step {state.step}'
+          f', phase 7 {phase7["final_lrs"]}')
+    step_s = [cur[1] - prev[1] for prev, cur in zip(marks, marks[1:-1])]
+    losses = [round(m[3]['loss'], 5) for m in marks[1:-1]]
+    print(f'[resume] train_edlora.main --resume {ckpt.name} (followed into '
+          f'{archived[0].name}), validation off: the loaded state equals '
+          f'the file bitwise (trainables, AdamW moments and step, schedule, '
+          f'emb_frozen {bool(saved["emb_frozen"])}, step {saved["step"]}); '
+          f'steps {steps[1:]} at '
+          + ', '.join(f'{t:.3f}' for t in step_s) + f' s, losses {losses}, '
+          f'logged learning rates as phase 7\'s ({lrs[resumed_steps[0]]} '
+          f'at step {resumed_steps[0]}); whole run {t_total:.2f} s; peak '
+          f'device memory {peak / 2 ** 30:.2f} GiB; {card}', flush=True)
+    return _sub(marks[-1][2], marks[0][2]), archived[0]
+
+
+def _same_state(got, want, path='state'):
+    """Bitwise equality of two train_state_dict payloads."""
+    if torch.is_tensor(want):
+        check(torch.is_tensor(got) and got.dtype == want.dtype and
+              torch.equal(got, want), f'resume: {path} differs')
+    elif isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(),
+              f'resume: {path} keys differ')
+        for k in want:
+            _same_state(got[k], want[k], f'{path}/{k}')
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f'resume: {path} length differs')
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_state(a, b, f'{path}/{i}')
+    else:
+        check(got == want, f'resume: {path} {got} != {want}')
+
+
+def _pngs(d):
+    return {p.name: np.asarray(Image.open(p)) for p in sorted(d.glob('*.png'))}
+
+
+def phase_test_edlora(dev, card, root, delta_path, archived, phase7):
+    """The alpha sweep through test_edlora.main on phase 7's last delta
+    with the repository's test config; alpha 0 against a pipeline without
+    LoRA, alpha 1.0 against phase 7's last validation at alpha 1.0."""
+    opt = yaml.safe_load(TEST_YML.read_text())
+    train_seed = yaml.safe_load(TRAIN_YML.read_text())['manual_seed']
+    check(opt['manual_seed'] == train_seed, 'test_edlora: another seed')
+    val = opt['datasets']['val_vis']
+    val['prompts'] = str(ROOT / val['prompts'])
+    val['num_samples_per_prompt'] = VAL_SAMPLES
+    opt['models']['pretrained_path'] = 'random:sd15'
+    opt['path'] = {'lora_path': str(delta_path),
+                   'experiments_root': str(root / 'test_results')}
+    yml = root / 'edlora_sd15_test.yml'
+    yml.write_text(yaml.safe_dump(opt))
+    alphas = opt['val']['alpha_list']
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = test_edlora.main(['-opt', str(yml), '--device', str(dev)])
+    t_sweep = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_req = len(alphas) * math.ceil(phase7['prompts'] /
+                                    val['batch_size_per_gpu'])
+    check(counts == {k: n_req * VAL_REQUEST.get(k, 0) for k in counts},
+          f'test_edlora: launches {counts}, expected {n_req} x '
+          f'{VAL_REQUEST}')
+    vis_dir = root / 'test_results' / 'visualization'
+    check(sorted(out) == sorted(alphas), f'test_edlora: outputs {out}')
+    _check_pngs(vis_dir, [''], alphas, phase7['prompts'])
+
+    # alpha 0 against the same concept table and latents without LoRA
+    dtype = resolve_compute_dtype(opt)
+    b = zoo.load_models('random:sd15', dev, seed=train_seed, dtype=dtype)
+    cfg, _ = init_concepts(b.tokenizer, opt['models']['new_concept_token'],
+                           None, b.text_encoder.token_embedding.weight)
+    delta = convert_edlora_delta(load_edlora_delta(str(delta_path)))
+    table = torch.cat([delta['new_concept_embedding'][n] for n in cfg])
+    pipe = EDLoRAPipeline(b.unet, b.text_encoder, b.vae, b.tokenizer, dev,
+                          dtype, new_concept_cfg=cfg, concept_embedding=table)
+    visual_validation(pipe, PromptDataset(val), 'no_lora',
+                      {**opt, 'path': {'visualization': str(root)}})
+    del b, pipe
+    zero, none = _pngs(vis_dir / f'Alpha-{alphas[0]}'), _pngs(root /
+                                                              'no_lora')
+    check(alphas[0] == 0 and list(zero) == list(none) and
+          all(np.array_equal(zero[f], none[f]) for f in zero),
+          'test_edlora: alpha 0 differs from the pipeline without LoRA')
+    # alpha 1.0 against phase 7's validation of the same delta
+    one = _pngs(vis_dir / 'Alpha-1.0')
+    ref = _pngs(archived / 'visualization' / 'Iters-latest_Alpha-1.0')
+    check(list(one) == list(ref), 'test_edlora: other file names than '
+          'phase 7\'s')
+    diff = [np.abs(one[f].astype(int) - ref[f].astype(int)) for f in one]
+    worst = max(int(d.max()) for d in diff)
+    same = sum(int((d == 0).sum()) for d in diff) / sum(d.size for d in diff)
+    print(f'[test_edlora] test_edlora.main on phase 7\'s last delta with '
+          f'{TEST_YML.name} (random:sd15 at seed {train_seed}; cut: '
+          f'num_samples_per_prompt {VAL_SAMPLES}), {len(alphas)} alphas x '
+          f'{phase7["prompts"]} prompts x '
+          f'{opt["val"]["sample"]["num_inference_steps"]} steps, CFG '
+          f'{opt["val"]["sample"]["guidance_scale"]}, {n_req} '
+          f'requests of 4 prompts: {t_sweep:.2f} s with the model load '
+          f'({t_sweep / n_req:.3f} s a request); alpha 0 bit-identical to '
+          f'the pipeline without LoRA; alpha 1.0 against phase 7\'s '
+          f'Iters-latest_Alpha-1.0: largest difference {worst} uint8 levels '
+          f'(bound 1), {same:.4%} of the values identical; launches '
+          f'{counts}; {card}', flush=True)
+    check(worst <= 1, 'test_edlora: alpha 1.0 differs from phase 7\'s '
+          'validation by more than one level')
+    return counts
 
 
 def _lora_paths(delta_path):
@@ -1263,16 +1605,19 @@ def main():
     phase_wiring_fusion(dev)
     plain = phase_main(dev, card)
     regional = phase_regional(dev, card)
-    scratch = Path(tempfile.mkdtemp(prefix='mos_chip_delta_'))
+    scratch = Path(tempfile.mkdtemp(prefix='mos_chip_train_'))
     try:
-        train = phase_train(dev, card, scratch / 'hermione.pth')
-        fusion = phase_fusion(dev, card, scratch / 'hermione.pth')
+        delta = scratch / 'hermione.pth'
+        train, phase7 = phase_train(dev, card, scratch, delta)
+        resume, archived = phase_resume(dev, card, scratch, phase7)
+        sweep = phase_test_edlora(dev, card, scratch, delta, archived,
+                                  phase7)
+        fusion = phase_fusion(dev, card, delta)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    runs = (plain, regional, train, resume, sweep, fusion)
     kernels = [{'name': name, 'route': route, 'source': src,
-                'replaces': rep,
-                'launches': sum(p[name] for p in (plain, regional, train,
-                                                  fusion)),
+                'replaces': rep, 'launches': sum(p[name] for p in runs),
                 **kres[name]}
                for name, (route, src, rep) in KERNEL_META.items()]
     print(json.dumps({'kernels': kernels}))

@@ -4,6 +4,7 @@ from mixofshow_tpu_torch.data.loader import (DataLoader, TrainBatcher,
 from mixofshow_tpu_torch.data.lora_dataset import LoraDataset
 from mixofshow_tpu_torch.data.pil_transform import (PairCompose,
                                                     build_transform)
+from mixofshow_tpu_torch.data.prompt_dataset import PromptDataset
 
-__all__ = ['DataLoader', 'LoraDataset', 'PairCompose', 'TrainBatcher',
-           'build_transform', 'default_collate']
+__all__ = ['DataLoader', 'LoraDataset', 'PairCompose', 'PromptDataset',
+           'TrainBatcher', 'build_transform', 'default_collate']

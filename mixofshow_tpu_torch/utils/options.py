@@ -36,6 +36,11 @@ def resolve_compute_dtype(opt):
     return torch.bfloat16 if mp in ('bf16', 'fp16') else torch.float32
 
 
+NEGATIVE_PROMPT = ('longbody, lowres, bad anatomy, bad hands, missing fingers,'
+                   ' extra digit, fewer digits, cropped, worst quality,'
+                   ' low quality')
+
+
 def dict2str(opt, indent_level: int = 1) -> str:
     """Pretty-print a nested options dict for logs (reference
     util.py:122-140)."""

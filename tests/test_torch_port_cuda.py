@@ -613,3 +613,58 @@ def test_vae_decode_launches_k8_per_group_norm(dev):
         b.vae.decode(_randn(dev, 1, 4, 8, 8, dtype=torch.float32))
     counts = ops.launch_counts()
     assert counts['gn_apply'] == counts['gn_spatial_sums'] == norms
+
+
+# The validation sweeps' shapes: 4 prompts a batch (batch_size_per_gpu of
+# the shipped configs' val_vis), so the UNet runs at batch 8 with CFG and
+# the VAE decodes 4 images at its six GroupNorm shapes
+VAL_DECODE_SHAPES = [(4, 512, 64, 64), (4, 512, 128, 128),
+                     (4, 512, 256, 256), (4, 256, 256, 256),
+                     (4, 256, 512, 512), (4, 128, 512, 512)]
+
+
+@pytest.mark.parametrize('b,s,h,d', [(8, 4096, 8, 40), (8, 1024, 8, 80)])
+def test_attn_fwd_at_the_validation_batch(dev, b, s, h, d):
+    q, k, v = (_randn(dev, b, s, h, d, dtype=torch.bfloat16, seed=i)
+               for i in (1, 2, 3))
+    out = fa.attn_fwd(q, k, v)
+    ref = fa.attn_fwd_plain(q, k, v)
+    assert twin_err(out, ref) <= ATTN_BF16_REL
+    for bad in k1_faults(q, k, v, s):
+        assert twin_err(bad, ref) > ATTN_BF16_REL
+
+
+def test_attention_block_at_the_validation_batch(dev):
+    c = 512
+    x = _randn(dev, 4, 4096, c, dtype=torch.bfloat16, seed=1)
+    w = [_randn(dev, c, c, dtype=torch.bfloat16, scale=c ** -0.5, seed=3 + i)
+         for i in range(4)]
+    bs = [_randn(dev, c, dtype=torch.bfloat16, scale=0.1, seed=9 + i)
+          for i in range(4)]
+    out = fa.attention_block(x, x, *w, bs[3], 1, *bs[:3])
+    ref = fa.attention_block_plain(*(t.float() for t in (x, x, *w, bs[3])),
+                                   1, *(t.float() for t in bs[:3]))
+    torch.testing.assert_close(out.float(), ref, atol=TOL[torch.bfloat16],
+                               rtol=0)
+
+
+@pytest.mark.parametrize('shape', VAL_DECODE_SHAPES)
+def test_spatial_sums_at_the_validation_batch(dev, shape):
+    x = _randn(dev, *shape, dtype=torch.bfloat16)
+    s1, s2 = gs.spatial_sums(x)
+    r1, r2 = gs.spatial_sums_plain(x)
+    mag = x.float().abs().sum(dim=(2, 3))
+    assert ((s1 - r1).abs() / mag).max().item() <= 1e-4
+    assert ((s2 - r2).abs() / r2).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize('shape,act', [(VAL_DECODE_SHAPES[0], 'none')] +
+                         [(s, 'silu') for s in VAL_DECODE_SHAPES])
+def test_scale_bias_act_at_the_validation_batch(dev, shape, act):
+    x = _randn(dev, *shape, dtype=torch.bfloat16, seed=1)
+    a = _randn(dev, *shape[:2], dtype=torch.float32, seed=2) * 0.2 + 1.0
+    b = _randn(dev, *shape[:2], dtype=torch.float32, seed=3) * 0.2
+    out = gs.scale_bias_act(x, a, b, act)
+    ref = gs.scale_bias_act_plain(x, a, b, act)
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= APPLY_TOL[torch.bfloat16]

@@ -28,7 +28,7 @@ from mixofshow_tpu.pipelines.concepts import init_concepts as jinit
 from mixofshow_tpu.text import CLIPTokenizer as JTokenizer
 from mixofshow_tpu.utils import logging_utils as jlog
 from mixofshow_tpu.utils import options as jopts
-from mixofshow_tpu_torch import train_edlora
+from mixofshow_tpu_torch import test_edlora, train_edlora
 from mixofshow_tpu_torch.data import (DataLoader, LoraDataset, PairCompose,
                                       TrainBatcher, build_transform,
                                       default_collate)
@@ -213,7 +213,8 @@ def test_cli_trains_and_saves_a_reference_delta(tmp_path):
     assert np.isfinite(float(ld['loss_attn_reg']))
     models = tmp_path / 'exp' / 'models'
     assert sorted(os.listdir(models)) == [
-        'edlora_model-1.pth', 'edlora_model-2.pth', 'edlora_model-latest.pth']
+        'edlora_model-1.pth', 'edlora_model-2.pth', 'edlora_model-latest.pth',
+        'train_state-1.pt', 'train_state-2.pt', 'train_state-latest.pt']
     raw = load_edlora_delta(str(models / 'edlora_model-latest.pth'))
     assert set(raw['params']) == {'new_concept_embedding', 'text_encoder',
                                   'unet'}
@@ -234,13 +235,12 @@ def test_cli_trains_and_saves_a_reference_delta(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Data parallelism (WORLD_SIZE > 1) is the one refusal left, in both
+    CLIs; --resume and val_during_save are ported
+    (tests/test_torch_port_validation.py)."""
     yml = _tiny_yml(tmp_path)
-    with pytest.raises(NotImplementedError, match='--resume'):
-        train_edlora.main(['-opt', yml, '--device', 'cpu', '--resume', 'x'])
-    (tmp_path / 'v').mkdir()
-    with pytest.raises(NotImplementedError, match='val_during_save'):
-        train_edlora.main(['-opt', _tiny_yml(tmp_path / 'v', val={
-            'val_during_save': True}), '--device', 'cpu'])
     monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(NotImplementedError, match='data-parallel'):
+    with pytest.raises(NotImplementedError, match='data parallelism'):
         train_edlora.main(['-opt', yml, '--device', 'cpu'])
+    with pytest.raises(NotImplementedError, match='data parallelism'):
+        test_edlora.main(['-opt', yml, '--device', 'cpu'])
