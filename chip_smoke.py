@@ -13,13 +13,22 @@ line when any fails, or when no CUDA device is visible):
                 inputs at the main paths' shapes (K1, K2, K3 and K8 also at
                 a validation batch of 4 prompts: K1 at batch 8 with CFG, K2
                 and K8 at the decoder's six GroupNorm shapes with their
-                launch-weighted sums over a decode), error against a stated
+                launch-weighted sums over a decode; K1, K3, K7, K2 and K8
+                also at phase 9's wide canvases, 512x1024 with 2 images and
+                1024x2048 with 1: K1 up to 32,768 keys, held against its
+                twin on the first, middle and last 512 query rows where
+                the twin's whole score matrix would not fit, K3 at 8,192
+                and 32,768 tokens, K7 on the wide grids, 8x16 the
+                smallest, with the layouts' boxes and regionally_sample.sh's
+                boxes past the canvas's lower edge, K2 and K8 at the 2x
+                decoder's six shapes), error against a stated
                 bound, both device times from CUDA events (the calls
                 queued behind a sleep kernel), the least time the card
                 could take (bound_ms: bytes over 3.35 TB/s or operations
                 over their peak rate, whichever is longer) and, where one
                 PyTorch call computes the same function, that call's time
-                (library_ms), K3 also by its three launches (the grouped
+                (library_ms; K2's is torch.var_mean, whose mean and
+                variance give Σx and Σx²), K3 also by its three launches (the grouped
                 q/k/v GEMM, the wide core, the out-projection); K1's
                 planted faults (a 64-key tile, the ragged last tile, the
                 kv_len mask left out of the twin) over its bf16 bound; K7
@@ -50,6 +59,11 @@ line when any fails, or when no CUDA device is visible):
                 through submit().result(), uint8 output. Checks shapes, that
                 the images are not constant and identical across the two
                 requests (same latents), and that K1, K2 and K3 launched;
+                then a third request with a utils.ptp.AttentionStore
+                attached: maps of exactly the 11 layers with at most 32²
+                queries, rows summing to 1 over the 77 keys within 1e-3,
+                and images within one uint8 level of the first request's
+                (the share that is identical printed);
   6. regional — regional path: the same widths plus a full-width keypose
                 adapter, three concepts in three boxes (bench.py's layout),
                 the repository's keypose image, 2 images at 512x512, CFG
@@ -109,12 +123,35 @@ line when any fails, or when no CUDA device is visible):
                 from the base exactly where a delta had a leaf, and that
                 the directory reloads (vocabulary 49408 + 96); then one
                 regional request of phase 6's layout on the fused model
-                (K7 16 x 50 times, images not constant).
+                (K7 16 x 50 times, images not constant); the fused
+                directory is kept for phase 9;
+  9. cli      — the port's regional CLI (regionally_controlable_sampling
+                .main, in-process, argv as a user gives it) on phase 8's
+                fused directory, with a seeded full-width keypose adapter
+                written in the TencentARC layout (pytorch_model.bin) and a
+                sketch adapter in the diffusers layout (prefixed
+                safetensors): each converted adapter's features equal the
+                seeded module's bitwise, and the CLI never takes its
+                random-adapter branch. 9a: the real_pose layout
+                potter_hermione_thanos.txt (3 boxes, its pose and sketch
+                images, a 512x1024 canvas), 2 images, seed 19, 50 steps;
+                9b: real_pose_2x/potter_hermione_thanos_2x.txt with its
+                pose image, 1024x2048, 1 image; 9c: regionally_sample.sh's
+                own arguments (2 boxes past the lower edge), 1 image. Each
+                checks the PNGs and .txt files under the hashed names (the
+                hash the sha256 of the .txt), images of the canvas size and
+                not constant (9a's two differ), and the launches of one
+                request: K1 500 (750 at 1024x2048), K7 800, K2 and K8 30,
+                K3 1, no flash kernel. Prints the load, sampling and save
+                seconds and the peak device memory.
 Phases 5 and 6 also check that no flash kernel launched. Then one JSON line
-with the kernels (launches: phases 5 to 8 together, 7b and 7c included), the
+with the kernels (launches: phases 5 to 9 together, 7b and 7c included), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
+import contextlib
 import copy
+import hashlib
+import io
 import json
 import logging
 import math
@@ -137,14 +174,19 @@ import torch.nn.functional as F
 
 from mixofshow_tpu_torch import (gradient_fusion, ops, test_edlora,
                                  train_edlora, zoo)
+from mixofshow_tpu_torch import regionally_controlable_sampling as \
+    regional_cli
 from mixofshow_tpu_torch.convert import (convert_edlora_delta,
-                                         load_edlora_delta, save_edlora_delta)
+                                         load_edlora_delta, safetensors_io,
+                                         save_edlora_delta)
 from mixofshow_tpu_torch.data import PromptDataset
 from mixofshow_tpu_torch.fusion import compose_concepts
 from mixofshow_tpu_torch.fusion.gradient_fusion import layer_kernel
 from mixofshow_tpu_torch.models import (CLIPTextConfig, CLIPTextModel, UNet,
                                         UNetConfig)
 from mixofshow_tpu_torch.models.lora import flatten_lora, init_lora_tree
+from mixofshow_tpu_torch.models.t2i_adapter import preprocess_adapter_image
+from mixofshow_tpu_torch.models.unet import cross_layer_query_sizes
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
@@ -160,6 +202,7 @@ from mixofshow_tpu_torch.pipelines.validation import visual_validation
 from mixofshow_tpu_torch.text import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import exact_fp32, require_cuda
 from mixofshow_tpu_torch.utils.options import resolve_compute_dtype
+from mixofshow_tpu_torch.utils.ptp import AttentionStore
 
 # K3 bf16 against the fp32 plain version on the same bf16 inputs: P and the
 # output are rounded to bf16 (2^-8 relative), so a few 1e-3 is expected;
@@ -251,6 +294,14 @@ KERNEL_META = {
 DECODE_NORMS = [((512, 64, 64), 11), ((512, 128, 128), 6),
                 ((512, 256, 256), 1), ((256, 256, 256), 5),
                 ((256, 512, 512), 1), ((128, 512, 512), 6)]
+# ... of the 2x decoder (a 1024x2048 canvas)
+DECODE_NORMS_2X = [((512, 128, 256), 11), ((512, 256, 512), 6),
+                   ((512, 512, 1024), 1), ((256, 512, 1024), 5),
+                   ((256, 1024, 2048), 1), ((128, 1024, 2048), 6)]
+# K1's plain twin holds fp32 scores for every (batch, head, query, key);
+# past this many bytes it runs on TWIN_ROWS rows of each end and the middle
+TWIN_SCORE_BYTES = 16 * 2 ** 30
+TWIN_ROWS = 512
 FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
 PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block',
                       'gn_apply')
@@ -267,8 +318,13 @@ OVERLAP_BOXES = [[0.0, 0.0, 0.6, 0.6], [0.3, 0.3, 0.9, 0.9],
                  [0.2, 0.5, 1.0, 1.0]]
 CONCEPTS = '<potter1> <potter2>+<hermione1> <hermione2>+<thanos1> <thanos2>'
 ROOT = Path(__file__).resolve().parent
-POSE = ROOT / 'datasets' / 'validation_spatial_condition' / \
-    'multi-characters' / 'real_pose' / 'potter_hermione_thanos_pose.png'
+LAYOUTS = ROOT / 'datasets' / 'validation_spatial_condition' / \
+    'multi-characters'
+POSE = LAYOUTS / 'real_pose' / 'potter_hermione_thanos_pose.png'
+# phase 9's layouts: 3 characters at 512x1024 and at 1024x2048
+LAYOUT_1X = LAYOUTS / 'real_pose' / 'potter_hermione_thanos.txt'
+LAYOUT_2X = LAYOUTS / 'real_pose_2x' / 'potter_hermione_thanos_2x.txt'
+SAMPLE_SH = ROOT / 'regionally_sample.sh'
 # the repository's ED-LoRA training config; phase 7 overrides only the data,
 # the weights, the length, the save frequency, the validation samples and
 # logging
@@ -277,6 +333,41 @@ TRAIN_YML = ROOT / 'options' / 'train' / 'EDLoRA' / 'real' / \
 # its validation sweep's config, for the test_edlora phase
 TEST_YML = ROOT / 'options' / 'test' / 'EDLoRA' / 'real' / \
     'EDLoRA_hermione_test.yml'
+
+
+def read_layout(path):
+    """A layout file's shell assignments (key='value') as a dict."""
+    return dict(re.findall(r"^(\w+)='(.*)'\s*$", Path(path).read_text(),
+                           re.M))
+
+
+def layout_rewrite(layout):
+    """The region string regionally_sample.sh builds, from a layout file:
+    '[char]-*-[context_neg_prompt]-*-box|...'."""
+    neg = layout['context_neg_prompt']
+    n = len([k for k in layout if re.fullmatch(r'char\d+', k)])
+    return '|'.join(f"[{layout[f'char{i}']}]-*-[{neg}]-*-{layout[f'box{i}']}"
+                    for i in range(1, n + 1))
+
+
+def sample_sh_args():
+    """regionally_sample.sh's variables (its prompt_rewrite built as the
+    script builds it)."""
+    text = SAMPLE_SH.read_text()
+    var = dict(re.findall(r"^(\w+)='([^']*)'$", text, re.M))
+    var.update(re.findall(r'^(\w+)="([^"]*)"$', text, re.M))
+    var.update(re.findall(r'^(\w+)=([^\'"\s]\S*)$', text, re.M))
+    neg = var['context_neg_prompt']
+    var['prompt_rewrite'] = '|'.join(
+        f"{var[f'region{i}_prompt']}-*-[{neg}]-*-{var[f'region{i}']}"
+        for i in (1, 2))
+    return var
+
+
+def layout_boxes(rewrite, height, width):
+    """The normalized boxes the CLI makes of a region string."""
+    return [box for _, _, box in
+            regional_cli.prepare_text('', rewrite, height, width)[1]]
 
 
 def check(cond, msg):
@@ -373,31 +464,43 @@ def phase_kernels(dev):
 
     res = {}
     # K1 at the UNet's res-64 and res-32 self-attention (CFG batch of 2
-    # prompts), a ragged kv_len, and the widest head of its wgmma kernel
-    # and the validation sweeps' (CFG batch of 4 prompts)
+    # prompts), a ragged kv_len, the widest head of its wgmma kernel, the
+    # validation sweeps' (CFG batch of 4 prompts), and phase 9's wide
+    # canvases: 512x1024 at CFG batch 4 (8192 and 2048 tokens), 1024x2048
+    # at CFG batch 2 (32768, 8192 and 2048)
     for b, s, h, d, sk, kvl in [(4, 4096, 8, 40, 4096, 4096),
                                 (4, 1024, 8, 80, 1024, 1024),
                                 (2, 1000, 8, 40, 1100, 1037),
                                 (2, 256, 8, 160, 1024, 1024),
                                 (8, 4096, 8, 40, 4096, 4096),
-                                (8, 1024, 8, 80, 1024, 1024)]:
+                                (8, 1024, 8, 80, 1024, 1024),
+                                (4, 8192, 8, 40, 8192, 8192),
+                                (4, 2048, 8, 80, 2048, 2048),
+                                (2, 32768, 8, 40, 32768, 32768),
+                                (2, 8192, 8, 80, 8192, 8192),
+                                (2, 2048, 8, 160, 2048, 2048)]:
         q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
         out = fa.attn_fwd(q, k, v, kvl)
-        ref = fa.attn_fwd_plain(q, k, v, kvl)
-        err, rel = _max_err(out, ref), _flash_err(out, ref)
-        fault = min(_flash_err(f, ref) for f in _attn_faults(q, k, v, kvl))
+        rows = _twin_rows(b, h, s, sk, dev)
+        qs, got = (q, out) if rows is None else (q[:, rows], out[:, rows])
+        ref = fa.attn_fwd_plain(qs, k, v, kvl)
+        err, rel = _max_err(got, ref), _flash_err(got, ref)
+        fault = min(_flash_err(f, ref) for f in _attn_faults(qs, k, v, kvl))
         ms = cuda_ms(lambda: fa.attn_fwd(q, k, v, kvl))
-        pms = cuda_ms(lambda: fa.attn_fwd_plain(q, k, v, kvl))
+        pms = cuda_ms(lambda: fa.attn_fwd_plain(qs, k, v, kvl))
         bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], out),
                     attn_flops(b, h, s, kvl, d, 2), PEAK_BF16)
         # a ragged kv_len: SDPA over the first kv_len keys
         lib = sdpa_ms(q, k[:, :kvl], v[:, :kvl])
+        subset = '' if rows is None else \
+            f' (twin on {len(rows)} of {s} query rows: the first, middle ' \
+            f'and last {TWIN_ROWS})'
         print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
               f'kv_len={kvl}: error vs twin {rel:.3e} of max|twin| (bound '
               f'{ATTN_BF16_REL}), max_abs_err {err:.3e}; planted fault '
-              f'{fault:.3e} (must exceed {ATTN_BF16_REL}); kernel {ms:.4f} '
-              f'ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
-              f'SDPA {lib:.4f} ms', flush=True)
+              f'{fault:.3e} (must exceed {ATTN_BF16_REL}){subset}; kernel '
+              f'{ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms '
+              f'({bnd[1]}), SDPA {lib:.4f} ms', flush=True)
         check(math.isfinite(rel) and rel <= ATTN_BF16_REL,
               'attn_fwd disagrees')
         check(fault > ATTN_BF16_REL,
@@ -406,10 +509,13 @@ def phase_kernels(dev):
         res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
     # K2 at the VAE decoder's GroupNorm inputs, NCHW, each with its
     # launches a decode (DECODE_NORMS): 2 images (the main path) and 4 (a
-    # validation batch); the launch-weighted sums over a whole decode
-    for batch in (2, 4):
-        tot = {'ms': 0.0, 'bound': 0.0, 'n': 0}
-        for chw, n in DECODE_NORMS:
+    # validation batch); 1 image of the 2x decoder (DECODE_NORMS_2X,
+    # phase 9b); the launch-weighted sums over a whole decode. Library:
+    # torch.var_mean (Σx = n·mean, Σx² = n·(var + mean²))
+    for batch, norms in ((2, DECODE_NORMS), (4, DECODE_NORMS),
+                         (1, DECODE_NORMS_2X)):
+        tot = {'ms': 0.0, 'bound': 0.0, 'n': 0, 'lib': 0.0}
+        for chw, n in norms:
             shape = (batch, *chw)
             x = randn(*shape)
             s1, s2 = gs.spatial_sums(x)
@@ -421,28 +527,33 @@ def phase_kernels(dev):
                       ((s2 - r2).abs() / r2).max().item())
             ms = cuda_ms(lambda: gs.spatial_sums(x))
             pms = cuda_ms(lambda: gs.spatial_sums_plain(x))
+            lib = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3),
+                                                 correction=0))
             bnd = least_time(nbytes(x, s1, s2), 3 * x.numel(), PEAK_FP32)
             print(f'[kernels] gn_spatial_sums (B,C,H,W)={shape} ({n} a '
                   f'decode): max_abs_err {err:.3e}, relative {rel:.3e} '
                   f'(bound {SUMS_BOUND}); kernel {ms:.4f} ms, plain '
-                  f'{pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]})',
-                  flush=True)
+                  f'{pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
+                  f'var_mean {lib:.4f} ms', flush=True)
             check(math.isfinite(rel) and rel <= SUMS_BOUND,
                   'gn_spatial_sums disagrees')
             tot['ms'] += n * ms
             tot['bound'] += n * bnd[0]
             tot['n'] += n
+            tot['lib'] += n * lib
             if shape == (2, 128, 512, 512):
-                res['gn_spatial_sums'] = row(err, ms, pms, bnd)
+                res['gn_spatial_sums'] = row(err, ms, pms, bnd, lib)
         print(f'[kernels] gn_spatial_sums over one decode of {batch} '
-              f'images ({tot["n"]} launches): {tot["ms"]:.4f} ms, least '
+              f'images at {norms[-1][0][1]}x{norms[-1][0][2]} '
+              f'({tot["n"]} launches): {tot["ms"]:.4f} ms, least '
               f'{tot["bound"]:.4f} ms ({tot["bound"] / tot["ms"]:.1%} of '
-              f'the least time)', flush=True)
-    # K3 at the VAE mid-block: 64x64 tokens, C=512, one head; 2 images
-    # (the main path) and 4 (a validation batch)
+              f'the least time), var_mean {tot["lib"]:.4f} ms', flush=True)
+    # K3 at the VAE mid-block: C=512, one head; 64x64 tokens with 2 images
+    # (the main path) and 4 (a validation batch), 64x128 with 2 and
+    # 128x256 with 1 (phase 9's canvases)
     c = 512
-    for b in (2, 4):
-        x = randn(b, 4096, c)
+    for b, s in ((2, 4096), (4, 4096), (2, 8192), (1, 32768)):
+        x = randn(b, s, c)
         w = [randn(c, c, scale=c ** -0.5) for _ in range(4)]
         bias = [randn(c, scale=0.1) for _ in range(4)]
         args = (x, x, *w, bias[3], 1, *bias[:3])
@@ -460,22 +571,22 @@ def phase_kernels(dev):
             return F.linear(o, w[3], bias[3])
 
         bnd = least_time(nbytes(x, *w, *bias, out),
-                         4 * 2 * b * 4096 * c * c +
-                         attn_flops(b, 1, 4096, 4096, c, 2), PEAK_BF16)
+                         4 * 2 * b * s * c * c +
+                         attn_flops(b, 1, s, s, c, 2), PEAK_BF16)
         lib = cuda_ms(library)
         # its three launches apart: the grouped q/k/v GEMM, the core, the
         # out-projection
         x2 = x.view(-1, c)
         qkv = [(x2, w[i], bias[i], c ** -0.5 if i == 0 else 1.0)
                for i in range(3)]
-        q, k, v = (t.view(b, 4096, 1, c) for t in fa._gemm_grouped(qkv))
+        q, k, v = (t.view(b, s, 1, c) for t in fa._gemm_grouped(qkv))
         o = torch.empty_like(q)
         parts = {'q/k/v GEMM': cuda_ms(lambda: fa._gemm_grouped(qkv)),
-                 'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, 4096,
+                 'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, s,
                                                          1.0)),
                  'out GEMM': cuda_ms(lambda: fa._gemm_grouped(
                      [(o.view(-1, c), w[3], bias[3], 1.0)]))}
-        print(f'[kernels] attn_block (B,S,C)=({b},4096,512) heads=1 with '
+        print(f'[kernels] attn_block (B,S,C)=({b},{s},512) heads=1 with '
               f'biases: max_abs_err {err:.3e} (bound {ATTN_BOUND}); kernel '
               f'{ms:.4f} ms ('
               + ', '.join(f'{n} {t:.4f}' for n, t in parts.items())
@@ -484,18 +595,31 @@ def phase_kernels(dev):
         check(math.isfinite(err) and err <= ATTN_BOUND,
               'attn_block disagrees')
         res.setdefault('attn_block', row(err, ms, pms, bnd, lib))
-    # K7 at the regional path's cross-attention layers: 2 images x CFG,
-    # 8 heads, 77 keys, the three boxes of REGIONS, then three overlapping
-    # boxes at the largest layer
+    # K7 at the regional path's cross-attention layers: 8 heads, 77 keys;
+    # phase 6's square grids (2 images x CFG) with the three boxes of
+    # REGIONS, then three overlapping boxes at the largest; phase 9's wide
+    # grids: 512x1024 (2 images x CFG) with the real_pose layout's boxes,
+    # 1024x2048 (1 image x CFG) with the 2x layout's, and
+    # regionally_sample.sh's two boxes, which end past the lower edge
     boxes = [box for _, _, box in REGIONS]
-    for hw, d, layout in [(64, 40, boxes), (32, 80, boxes), (16, 160, boxes),
-                          (8, 160, boxes), (64, 40, OVERLAP_BOXES)]:
-        b, h, sk = 4, 8, 77
-        q = randn(b, hw * hw, h, d)
+    wide1 = layout_boxes(layout_rewrite(read_layout(LAYOUT_1X)), 512, 1024)
+    wide2 = layout_boxes(layout_rewrite(read_layout(LAYOUT_2X)), 1024, 2048)
+    past = layout_boxes(sample_sh_args()['prompt_rewrite'], 512, 1024)
+    cases = [(4, hw, hw, d, boxes, 'REGIONS') for hw, d in
+             ((64, 40), (32, 80), (16, 160), (8, 160))]
+    cases += [(4, 64, 64, 40, OVERLAP_BOXES, 'overlapping')]
+    cases += [(4, gh, gh * 2, d, wide1, LAYOUT_1X.name) for gh, d in
+              ((64, 40), (32, 80), (16, 160), (8, 160))]
+    cases += [(2, gh, gh * 2, d, wide2, LAYOUT_2X.name) for gh, d in
+              ((128, 40), (64, 80), (32, 160), (16, 160))]
+    cases += [(2, 64, 128, 40, past, 'regionally_sample.sh, past the edge')]
+    for b, gh, gw, d, layout, which in cases:
+        h, sk, nr = 8, 77, len(layout)
+        q = randn(b, gh * gw, h, d)
         gk, gv = randn(b, sk, h, d), randn(b, sk, h, d)
-        rk, rv = randn(3, b, sk, h, d), randn(3, b, sk, h, d)
-        px = ra.boxes_to_grid(layout, hw, hw)
-        args = (q, gk, gv, rk, rv, px, (hw, hw))
+        rk, rv = randn(nr, b, sk, h, d), randn(nr, b, sk, h, d)
+        px = ra.boxes_to_grid(layout, gh, gw)
+        args = (q, gk, gv, rk, rv, px, (gh, gw))
         out = ra.region_attention(*args)
         ref = ra.region_attention_plain(*args)   # the bf16 twin
         err, rel = _max_err(out, ref), _flash_err(out, ref)
@@ -504,13 +628,12 @@ def phase_kernels(dev):
         pms = cuda_ms(lambda: ra.region_attention_plain(*args))
         # this layout's work: a pixel attends each region it lies in, or
         # the global context when it lies in none
-        cnt = sum(ra.box_mask(box, hw, hw, 'cpu') for box in px)
+        cnt = sum(ra.box_mask(box, gh, gw, 'cpu') for box in px)
         contexts = torch.clamp(cnt, min=1).sum().item()
         bnd = least_time(nbytes(q, gk, gv, rk, rv, out),
                     attn_flops(b, h, contexts, sk, d, 2), PEAK_BF16)
-        which = 'overlapping' if layout is OVERLAP_BOXES else 'REGIONS'
-        print(f'[kernels] region_attn (B,N,H,D)=({b},{hw}x{hw},{h},{d}) '
-              f'Sk={sk} R=3 {which}: '
+        print(f'[kernels] region_attn (B,N,H,D)=({b},{gh}x{gw},{h},{d}) '
+              f'Sk={sk} R={nr} {which} {px.tolist()}: '
               f'error vs twin {rel:.3e} of max|twin| (bound '
               f'{REGION_BF16_REL}), max_abs_err {err:.3e}; planted fault '
               f'{fault:.3e} (must exceed {REGION_BF16_REL}); kernel {ms:.4f} '
@@ -539,9 +662,14 @@ def apply_kernel_checks(dev):
     call."""
     g = torch.Generator(device=dev).manual_seed(11)
     first = None
-    val = [((4, 512, 64, 64), 'none', (torch.bfloat16,))] + [
-        ((4, *chw), 'silu', (torch.bfloat16,)) for chw, _ in DECODE_NORMS]
-    tot = {'ms': 0.0, 'bound': 0.0}
+    # the decoder's launch-weighted totals: 4 images at 512x512, 1 image at
+    # 1024x2048
+    decodes = {4: DECODE_NORMS, 1: DECODE_NORMS_2X}
+    val = [((b, *norms[0][0]), 'none', (torch.bfloat16,)) for b, norms in
+           decodes.items()] + [((b, *chw), 'silu', (torch.bfloat16,))
+                               for b, norms in decodes.items()
+                               for chw, _ in norms]
+    tot = {b: {'ms': 0.0, 'bound': 0.0} for b in decodes}
     for shape, act, dts in [
             ((2, 512, 64, 64), 'none', (torch.bfloat16, torch.float32)),
             ((2, 512, 64, 64), 'silu', (torch.bfloat16, torch.float32)),
@@ -581,13 +709,15 @@ def apply_kernel_checks(dev):
                   'gn_apply bound does not reject the planted fault')
             if first is None:
                 first = row(err, ms, pms, bnd, lib)
-            if shape[0] == 4 and act == 'silu':
-                n = dict(DECODE_NORMS)[shape[1:]]
-                tot['ms'] += n * ms
-                tot['bound'] += n * bnd[0]
-    print(f'[kernels] gn_apply (SiLU) over one decode of 4 images (30 '
-          f'launches, bf16): {tot["ms"]:.4f} ms, least {tot["bound"]:.4f} ms '
-          f'({tot["bound"] / tot["ms"]:.1%} of the least time)', flush=True)
+            if shape[0] in decodes and act == 'silu':
+                n = dict(decodes[shape[0]])[shape[1:]]
+                tot[shape[0]]['ms'] += n * ms
+                tot[shape[0]]['bound'] += n * bnd[0]
+    for b, t in tot.items():
+        print(f'[kernels] gn_apply (SiLU) over one decode of {b} images at '
+              f'{decodes[b][-1][0][1]}x{decodes[b][-1][0][2]} (30 launches, '
+              f'bf16): {t["ms"]:.4f} ms, least {t["bound"]:.4f} ms '
+              f'({t["bound"] / t["ms"]:.1%} of the least time)', flush=True)
     # the backward (plain torch) behind the kernel's forward, fp32
     x = torch.randn((2, 64, 32, 32), generator=g, device=dev)
     a = torch.randn((2, 64), generator=g, device=dev) * 0.3 + 1.0
@@ -610,6 +740,18 @@ def apply_kernel_checks(dev):
 
 def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _twin_rows(b, h, s, sk, dev):
+    """None when K1's plain twin can hold the whole fp32 score matrix, else
+    the query rows it is held on: the first, the middle and the last
+    TWIN_ROWS."""
+    if b * h * s * sk * 4 <= TWIN_SCORE_BYTES:
+        return None
+    mid = s // 2 - TWIN_ROWS // 2
+    return torch.cat([torch.arange(0, TWIN_ROWS),
+                      torch.arange(mid, mid + TWIN_ROWS),
+                      torch.arange(s - TWIN_ROWS, s)]).to(dev)
 
 
 def _attn_faults(q, k, v, kv_len):
@@ -871,7 +1013,43 @@ def phase_main(dev, card):
           f'submit().result() {t_submit:.3f} s ({2 / t_submit:.4f} img/s; '
           f'submit() returned after {t_queued:.3f} s); {card}; launches '
           f'{counts}', flush=True)
-    return counts
+
+    # the same request with an attention store attached
+    store = AttentionStore()
+    pipe.set_controller(store)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out_ctl = pipe(prompts, **kw)
+    t_ctl = time.perf_counter() - t0
+    pipe.set_controller(None)
+    after = ops.launch_counts()
+    req = {k: after[k] - before[k] for k in after}
+    avg = store.get_average_attention()
+    maps = [m for key in sorted(avg) for m in avg[key]]
+    small = [q for *_, q in cross_layer_query_sizes(pipe.unet.cfg, 64, 64)
+             if q <= store.max_size ** 2]
+    rowsum = max(float(np.abs(m.sum(-1) - 1.0).max()) for m in maps)
+    diff = np.abs(out_ctl.astype(int) - out_call.astype(int))
+    same = float((diff == 0).mean())
+    print(f'[main] the request with an AttentionStore (max_size '
+          f'{store.max_size}): {t_ctl:.3f} s; {len(maps)} maps '
+          f'{sorted((m.shape[-2], m.shape[-1]) for m in maps)} over '
+          f'{store.cur_step} steps, rows summing to 1 within {rowsum:.2e}; '
+          f'images against the first request: {same:.4%} of the values '
+          f'identical, largest difference {int(diff.max())} uint8 levels '
+          f'(the 77-key cross-attention takes the same dense route with and '
+          f'without capture); launches {req}', flush=True)
+    check(len(maps) == len(small) == 11 and store.cur_step == 50 and
+          sorted(m.shape[-2] for m in maps) == sorted(small) and
+          all(m.shape[-1] == 77 for m in maps),
+          f'main: the store holds {len(maps)} maps over {store.cur_step} '
+          f'steps')
+    check(rowsum <= 1e-3, f'main: attention rows sum to 1 within {rowsum}')
+    check(int(diff.max()) <= 1, 'main: the request with a controller '
+          'differs from the one without by more than one level')
+    check(req == {k: v // 2 for k, v in counts.items()},
+          f'main: the controller request launched {req}')
+    return after
 
 
 def phase_regional(dev, card):
@@ -1485,99 +1663,97 @@ def _lora_paths(delta_path):
             'unet': set(flatten_lora(d['unet_lora']))}
 
 
-def phase_fusion(dev, card, hermione):
-    """Phase 8: fuse three concepts at SD1.5 width through the CLI, reload
-    the checkpoint and sample one regional request from it."""
-    root = Path(tempfile.mkdtemp(prefix='mos_chip_fuse_'))
-    try:
-        shapes = (UNet(UNetConfig.sd15(), 'meta'),
-                  CLIPTextModel(CLIPTextConfig.sd15(), 'meta'))
-        cfg, leaves = [], {'text_encoder': set(), 'unet': set()}
-        for name, seed in (('potter', 1), ('hermione', None), ('thanos', 3)):
-            names = [f'<{name}1>', f'<{name}2>']
-            path = hermione if seed is None else root / f'{name}.pth'
-            if seed is not None:
-                _seeded_delta(path, names, seed, *shapes)
-            cfg.append(_concept_entry(path, names))
-            for k, v in _lora_paths(path).items():
-                leaves[k] |= v
-        (root / 'concepts.json').write_text(json.dumps(cfg))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        report = {}
-        ckpt, new_cfg = gradient_fusion.main(
-            ['--concept_cfg', str(root / 'concepts.json'), '--save_path',
-             str(root / 'out'), '--pretrained_models', 'random:sd15',
-             '--spatial_steps', str(FUSION_STEPS), '--image_size', '512',
-             '--device', str(dev)], report=report)
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        evals = len(cfg) * FUSION_STEPS
-        want = {k: 0 for k in counts}
-        want['flash_fwd'] = 10 * evals
-        layers = {k: len(report[k]['kernels'])
-                  for k in ('text', 'crosskv', 'spatial')}
-        finite = all(math.isfinite(r) for k in layers
-                     for r in report[k]['residuals'].values())
-        check(counts == want, f'fusion: launches {counts}, expected {want}')
-        check(layers == {'text': 48, 'crosskv': 32, 'spatial': 96} and
-              finite, f'fusion: layers solved {layers}, finite {finite}')
+def phase_fusion(dev, card, hermione, root):
+    """Phase 8: fuse three concepts at SD1.5 width through the CLI into
+    `root`, reload the checkpoint and sample one regional request from it.
+    Returns the launches and the fused directory (kept for phase 9)."""
+    root.mkdir(parents=True)
+    shapes = (UNet(UNetConfig.sd15(), 'meta'),
+              CLIPTextModel(CLIPTextConfig.sd15(), 'meta'))
+    cfg, leaves = [], {'text_encoder': set(), 'unet': set()}
+    for name, seed in (('potter', 1), ('hermione', None), ('thanos', 3)):
+        names = [f'<{name}1>', f'<{name}2>']
+        path = hermione if seed is None else root / f'{name}.pth'
+        if seed is not None:
+            _seeded_delta(path, names, seed, *shapes)
+        cfg.append(_concept_entry(path, names))
+        for k, v in _lora_paths(path).items():
+            leaves[k] |= v
+    (root / 'concepts.json').write_text(json.dumps(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    report = {}
+    ckpt, new_cfg = gradient_fusion.main(
+        ['--concept_cfg', str(root / 'concepts.json'), '--save_path',
+         str(root / 'out'), '--pretrained_models', 'random:sd15',
+         '--spatial_steps', str(FUSION_STEPS), '--image_size', '512',
+         '--device', str(dev)], report=report)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    evals = len(cfg) * FUSION_STEPS
+    want = {k: 0 for k in counts}
+    want['flash_fwd'] = 10 * evals
+    layers = {k: len(report[k]['kernels'])
+              for k in ('text', 'crosskv', 'spatial')}
+    finite = all(math.isfinite(r) for k in layers
+                 for r in report[k]['residuals'].values())
+    check(counts == want, f'fusion: launches {counts}, expected {want}')
+    check(layers == {'text': 48, 'crosskv': 32, 'spatial': 96} and
+          finite, f'fusion: layers solved {layers}, finite {finite}')
 
-        t0 = time.perf_counter()
-        fused = zoo.load_models(ckpt, dev)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        vocab = fused.text_encoder.cfg.vocab_size
-        check(vocab == 49408 + 96 and len(fused.tokenizer) == vocab,
-              f'fusion: reloaded vocabulary {vocab}')
-        base = zoo.load_models('random:sd15', dev, seed=0)
-        changed = {}
-        for model in ('unet', 'text_encoder', 'vae'):
-            fs = getattr(fused, model).state_dict()
-            for k, want_t in getattr(base, model).state_dict().items():
-                got = fs[k]
-                if k == 'token_embedding.weight':
-                    check(torch.equal(got[:want_t.shape[0]], want_t),
-                          'fusion: the base vocabulary rows moved')
-                    continue
-                path = k[:-len('.weight')].replace('.', '/')
-                if k.endswith('.weight') and path in leaves.get(model, ()):
-                    changed[path] = (got - want_t).abs().max().item()
-                else:
-                    check(torch.equal(got, want_t),
-                          f'fusion: {model} {k} moved without a delta')
-        del base
-        check(len(changed) == 48 + 128 and min(changed.values()) > 0,
-              f'fusion: {len(changed)} LoRA layers, smallest change '
-              f'{min(changed.values())}')
+    t0 = time.perf_counter()
+    fused = zoo.load_models(ckpt, dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    vocab = fused.text_encoder.cfg.vocab_size
+    check(vocab == 49408 + 96 and len(fused.tokenizer) == vocab,
+          f'fusion: reloaded vocabulary {vocab}')
+    base = zoo.load_models('random:sd15', dev, seed=0)
+    changed = {}
+    for model in ('unet', 'text_encoder', 'vae'):
+        fs = getattr(fused, model).state_dict()
+        for k, want_t in getattr(base, model).state_dict().items():
+            got = fs[k]
+            if k == 'token_embedding.weight':
+                check(torch.equal(got[:want_t.shape[0]], want_t),
+                      'fusion: the base vocabulary rows moved')
+                continue
+            path = k[:-len('.weight')].replace('.', '/')
+            if k.endswith('.weight') and path in leaves.get(model, ()):
+                changed[path] = (got - want_t).abs().max().item()
+            else:
+                check(torch.equal(got, want_t),
+                      f'fusion: {model} {k} moved without a delta')
+    del base
+    check(len(changed) == 48 + 128 and min(changed.values()) > 0,
+          f'fusion: {len(changed)} LoRA layers, smallest change '
+          f'{min(changed.values())}')
 
-        adapter = zoo.load_t2i_adapter('keypose', 'sd15', dev, seed=3,
-                                       dtype=torch.bfloat16)
-        pipe = RegionallyT2IAdapterPipeline(
-            fused.unet, fused.text_encoder, fused.vae, fused.tokenizer, dev,
-            torch.bfloat16, new_concept_cfg=new_cfg, keypose_adapter=adapter)
-        layout = [('three people standing in a park, best quality', REGIONS)]
-        lat = torch.randn((2, 4, 64, 64), device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(2))
-        before = ops.launch_counts()
-        t0 = time.perf_counter()
-        out = pipe(layout, keypose_adapter_input=Image.open(POSE).convert(
-            'RGB'), height=512, width=512, num_inference_steps=50,
-            guidance_scale=7.5, num_images_per_prompt=2, latents=lat,
-            output_type='uint8')
-        t_req = time.perf_counter() - t0
-        after = ops.launch_counts()
-        req = {k: after[k] - before[k] for k in after}
-        check(out.shape == (2, 512, 512, 3) and
-              all(int(im.max()) > int(im.min()) for im in out),
-              f'fusion: the regional request gave {out.shape}')
-        check(req['region_attn'] == 16 * 50 and
-              all(req[k] > 0 for k in PLAIN_PATH_KERNELS) and
-              all(req[k] == 0 for k in FLASH_KERNELS),
-              f'fusion: regional launches {req}')
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    adapter = zoo.load_t2i_adapter('keypose', 'sd15', dev, seed=3,
+                                   dtype=torch.bfloat16)
+    pipe = RegionallyT2IAdapterPipeline(
+        fused.unet, fused.text_encoder, fused.vae, fused.tokenizer, dev,
+        torch.bfloat16, new_concept_cfg=new_cfg, keypose_adapter=adapter)
+    layout = [('three people standing in a park, best quality', REGIONS)]
+    lat = torch.randn((2, 4, 64, 64), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(layout, keypose_adapter_input=Image.open(POSE).convert(
+        'RGB'), height=512, width=512, num_inference_steps=50,
+        guidance_scale=7.5, num_images_per_prompt=2, latents=lat,
+        output_type='uint8')
+    t_req = time.perf_counter() - t0
+    after = ops.launch_counts()
+    req = {k: after[k] - before[k] for k in after}
+    check(out.shape == (2, 512, 512, 3) and
+          all(int(im.max()) > int(im.min()) for im in out),
+          f'fusion: the regional request gave {out.shape}')
+    check(req['region_attn'] == 16 * 50 and
+          all(req[k] > 0 for k in PLAIN_PATH_KERNELS) and
+          all(req[k] == 0 for k in FLASH_KERNELS),
+          f'fusion: regional launches {req}')
     sec = report['seconds']
     print(f'[fusion] SD1.5 gradient fusion through gradient_fusion.main, 3 '
           f'concepts, exact solve, {FUSION_STEPS} spatial steps at 512x512, '
@@ -1590,7 +1766,162 @@ def phase_fusion(dev, card, hermione):
           f'(3 regions, keypose, 2 images 512x512, 50 steps, CFG 7.5) '
           f'{t_req:.3f} s ({2 / t_req:.4f} img/s), launches {req}; {card}',
           flush=True)
-    return {k: counts[k] + req[k] for k in counts}
+    return {k: counts[k] + req[k] for k in counts}, ckpt
+
+
+def original_layout(sd, nums_rb):
+    """The port's (diffusers-named) adapter state dict in the original
+    TencentARC layout: body.{i}.resnets.{j}.X -> body.{i*nums_rb+j}.X,
+    body.{i}.in_conv.X -> body.{i*nums_rb}.in_conv.X."""
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r'body\.(\d+)\.resnets\.(\d+)\.(.*)', k)
+        if m:
+            out[f'body.{int(m[1]) * nums_rb + int(m[2])}.{m[3]}'] = v
+            continue
+        m = re.match(r'body\.(\d+)\.in_conv\.(.*)', k)
+        out[f'body.{int(m[1]) * nums_rb}.in_conv.{m[2]}' if m else k] = v
+    return out
+
+
+ADAPTER_SEEDS = {'keypose': 3, 'sketch': 4}
+
+
+def _write_adapters(dev, root):
+    """Seeded full-width adapters on disk: keypose in the TencentARC layout
+    (pytorch_model.bin), sketch in the diffusers layout with the
+    'adapter.' prefix (diffusion_pytorch_model.safetensors). Returns
+    {kind: directory}."""
+    dirs = {}
+    for kind, seed in ADAPTER_SEEDS.items():
+        a = zoo.load_t2i_adapter(kind, 'sd15', dev, seed=seed)
+        sd = {k: t.cpu() for k, t in a.state_dict().items()}
+        dirs[kind] = root / kind
+        dirs[kind].mkdir(parents=True)
+        if kind == 'keypose':
+            torch.save(original_layout(sd, a.cfg.num_res_blocks),
+                       dirs[kind] / 'pytorch_model.bin')
+        else:
+            safetensors_io.save_file(
+                {f'adapter.{k}': t for k, t in sd.items()},
+                str(dirs[kind] / 'diffusion_pytorch_model.safetensors'))
+    return dirs
+
+
+def _check_adapters(dev, dirs):
+    """Each adapter as the CLI loads it (regional_cli.load_adapter, bf16)
+    gives the seeded module's features bitwise on the layout's images."""
+    images = {'keypose': Image.open(POSE).convert('RGB'),
+              'sketch': Image.open(POSE.with_name(POSE.name.replace(
+                  '_pose', '_sketch'))).convert('L')}
+    for kind, seed in ADAPTER_SEEDS.items():
+        got = regional_cli.load_adapter(str(dirs[kind]), kind, 'sd15', dev,
+                                        torch.bfloat16)
+        want = zoo.load_t2i_adapter(kind, 'sd15', dev, seed=seed,
+                                    dtype=torch.bfloat16)
+        x = torch.from_numpy(preprocess_adapter_image(
+            images[kind], 512, 1024)).permute(0, 3, 1, 2).to(
+                dev, torch.bfloat16)
+        with torch.inference_mode():
+            same = all(torch.equal(a, b) for a, b in zip(got(x), want(x)))
+        check(same, f'cli: the converted {kind} adapter differs from the '
+              'seeded one')
+    print(f'[cli] adapters: keypose written in the TencentARC layout, '
+          f'sketch in the diffusers layout; converted features equal the '
+          f'seeded modules\' bitwise (bf16, {POSE.name} and its sketch)',
+          flush=True)
+
+
+def _cli_run(name, dev, card, argv, k1, n_images, canvas):
+    """One request through regional_cli.main with `argv`; checks its files,
+    images and launches (K1 `k1`, K7 800, K2 and K8 30, K3 1)."""
+    buf = io.StringIO()
+    report = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        files = regional_cli.main(argv + ['--device', str(dev)],
+                                  report=report)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    said = buf.getvalue()
+    check('random init' not in said, f'cli {name}: an adapter was random:'
+          f' {said}')
+    args = regional_cli.parse_args(argv)
+    stem = re.escape(args.prompt.replace(' ', '_'))
+    check(len(files) == n_images, f'cli {name}: files {files}')
+    images = []
+    for i, f in enumerate(files):
+        m = re.fullmatch(stem + f'---{re.escape(args.suffix)}---'
+                         r'([0-9a-f]{8})' + (f'---{i}' if n_images > 1
+                                             else '') + r'\.png',
+                         os.path.basename(f))
+        txt = Path(f[:-4] + '.txt')
+        check(m is not None and Path(f).parent.name == f'seed_{args.seed}'
+              and txt.exists(), f'cli {name}: {f}')
+        check(hashlib.sha256(txt.read_bytes()).hexdigest()[:8] == m[1],
+              f'cli {name}: {f} is not named by the hash of its .txt')
+        img = np.asarray(Image.open(f))
+        check(img.shape == (*canvas, 3) and int(img.max()) > int(img.min()),
+              f'cli {name}: {f} is {img.shape}, range {img.min()} to '
+              f'{img.max()}')
+        images.append(img)
+    if n_images > 1:
+        check(not np.array_equal(images[0], images[1]),
+              f'cli {name}: its images are the same')
+    want = {k: 0 for k in counts}
+    want.update(attn_fwd=k1, region_attn=16 * 50, gn_spatial_sums=30,
+                gn_apply=30, attn_block=1)
+    check(counts == want, f'cli {name}: launches {counts}, expected {want}')
+    print(f'[cli] {name}: {canvas[0]}x{canvas[1]}, {n_images} image(s), '
+          f'{args.num_inference_steps} steps, seed {args.seed}: load '
+          f'{report["load_s"]:.3f} s, sampling {report["sample_s"]:.3f} s, '
+          f'save {report["save_s"]:.3f} s; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB (max_memory_allocated, load '
+          f'included); files {[os.path.basename(f) for f in files]}; '
+          f'launches {counts}; {card}', flush=True)
+    return counts
+
+
+def phase_cli(dev, card, ckpt, root):
+    """Phase 9: the regional CLI on phase 8's fused directory."""
+    dirs = _write_adapters(dev, root / 'adapters')
+    _check_adapters(dev, dirs)
+    adapters = ['--keypose_adapter_path', str(dirs['keypose']),
+                '--sketch_adapter_path', str(dirs['sketch'])]
+    runs = []
+    for name, txt, sketch, n in (('9a', LAYOUT_1X, True, 2),
+                                 ('9b', LAYOUT_2X, False, 1)):
+        lay = read_layout(txt)
+        stem = str(txt)[:-4]
+        argv = ['--pretrained_model', str(ckpt),
+                '--keypose_condition', stem + '_pose.png',
+                '--prompt', lay['context_prompt'],
+                '--negative_prompt', lay['context_neg_prompt'],
+                '--prompt_rewrite', layout_rewrite(lay),
+                '--save_dir', str(root / name), '--suffix', name,
+                '--seed', '19', '--num_inference_steps', '50',
+                '--num_images_per_prompt', str(n)] + adapters
+        if sketch:
+            argv += ['--sketch_condition', stem + '_sketch.png']
+        w, h = Image.open(stem + '_pose.png').size
+        runs.append(_cli_run(name, dev, card, argv, 10 * 50 if h == 512
+                             else 15 * 50, n, (h, w)))
+    # 9c: regionally_sample.sh's own arguments, the adapters added
+    var = sample_sh_args()
+    argv = ['--pretrained_model', str(ckpt),
+            f'--sketch_adaptor_weight={var["sketch_adaptor_weight"]}',
+            f'--sketch_condition={var["sketch_condition"]}',
+            f'--keypose_adaptor_weight={var["keypose_adaptor_weight"]}',
+            f'--keypose_condition={ROOT / var["keypose_condition"]}',
+            f'--save_dir={root / "9c" / var["expdir"]}',
+            f'--prompt={var["context_prompt"]}',
+            f'--negative_prompt={var["context_neg_prompt"]}',
+            f'--prompt_rewrite={var["prompt_rewrite"]}',
+            '--suffix=baseline', '--seed=19'] + adapters
+    runs.append(_cli_run('9c', dev, card, argv, 10 * 50, 1, (512, 1024)))
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def main():
@@ -1612,10 +1943,11 @@ def main():
         resume, archived = phase_resume(dev, card, scratch, phase7)
         sweep = phase_test_edlora(dev, card, scratch, delta, archived,
                                   phase7)
-        fusion = phase_fusion(dev, card, delta)
+        fusion, ckpt = phase_fusion(dev, card, delta, scratch / 'fusion')
+        cli = phase_cli(dev, card, ckpt, scratch / 'cli')
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    runs = (plain, regional, train, resume, sweep, fusion)
+    runs = (plain, regional, train, resume, sweep, fusion, cli)
     kernels = [{'name': name, 'route': route, 'source': src,
                 'replaces': rep, 'launches': sum(p[name] for p in runs),
                 **kres[name]}

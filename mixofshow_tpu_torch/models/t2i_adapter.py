@@ -8,13 +8,14 @@ block: [(c0, H/8), (c1, H/16), (c2, H/32), (c3, H/64)].
 
 Module paths mirror the JAX parameter tree (`conv_in`,
 `body.{i}.in_conv`, `body.{i}.resnets.{j}.block1/block2`), so
-convert.load_jax_params carries it across. Checkpoint conversion (diffusers
-and original `.pth` layouts) arrives with the checkpoint loaders.
+convert.load_jax_params carries it across, and they are the diffusers
+checkpoint names without the `adapter.` prefix, so `convert_t2i_adapter`
+loads a diffusers or an original TencentARC checkpoint without a transpose.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +96,80 @@ class T2IAdapter(nn.Module):
             h = stage(h)
             feats.append(h)
         return feats
+
+
+def convert_t2i_adapter(sd: Dict, cfg: T2IAdapterConfig, device,
+                        dtype=torch.float32) -> T2IAdapter:
+    """A T2I-Adapter state dict -> the port's `T2IAdapter` on `device`.
+
+    Takes both checkpoint layouts of the 'full_adapter' architecture, as the
+    JAX package's convert_t2i_adapter does:
+      * diffusers (`adapter.body.{i}.resnets.{j}.block1...`, with or without
+        the `adapter.` prefix);
+      * the original TencentARC `.pth` (flat `body.{k}.block1...` with k =
+        stage * nums_rb + j and `in_conv` on the first block of a stage
+        that changes channels; sk=True, use_conv=False, the
+        t2iadapter_{keypose,sketch}_sd14v1 releases).
+    The resnets a stage holds are counted from the checkpoint (`cfg`'s
+    num_res_blocks is replaced by that count). A conv_in or body weight the
+    module does not hold, or one it lacks, raises."""
+    if (not any('.resnets.' in k for k in sd)
+            and any(k.startswith('body.') and '.block1.' in k for k in sd)):
+        sd = _original_to_diffusers_layout(sd, cfg)
+    pre = 'adapter.' if any(k.startswith('adapter.') for k in sd) else ''
+    own = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    nums = {len({k.split('.')[3] for k in own
+                 if k.startswith(f'body.{i}.resnets.')})
+            for i in range(len(cfg.channels))}
+    if len(nums) != 1:
+        raise ValueError(f'T2I-Adapter stages hold {sorted(nums)} resnets; '
+                         'the full_adapter architecture has one count')
+    cfg = dataclasses.replace(cfg, num_res_blocks=nums.pop())
+    adapter = T2IAdapter(cfg, device, dtype)
+    want = adapter.state_dict()
+    held = {k for k in own if k.startswith(('conv_in.', 'body.'))}
+    if held != set(want):
+        raise KeyError(f'T2I-Adapter checkpoint: missing '
+                       f'{sorted(set(want) - held)[:5]}, unexpected '
+                       f'{sorted(held - set(want))[:5]}')
+    for k, t in want.items():
+        if tuple(own[k].shape) != tuple(t.shape):
+            raise ValueError(f'T2I-Adapter {k} is {tuple(own[k].shape)}, '
+                             f'the config gives {tuple(t.shape)}')
+    adapter.load_state_dict({k: torch.as_tensor(own[k]) for k in want})
+    return adapter.eval()
+
+
+def _original_to_diffusers_layout(sd: Dict, cfg: T2IAdapterConfig) -> Dict:
+    """Rename the original TencentARC flat keys to the diffusers layout.
+    Rejects sk=False checkpoints (`skep` convs, a residual path the
+    full_adapter architecture lacks) and use_conv=True ones (`down_opt`
+    convs, a learned downsample where full_adapter avg-pools)."""
+    if any('.skep.' in k for k in sd):
+        raise ValueError(
+            'original T2I-Adapter checkpoint with sk=False (skep convs) is '
+            'not the full_adapter architecture the reference uses')
+    if any('.down_opt.' in k for k in sd):
+        raise ValueError(
+            'original T2I-Adapter checkpoint with use_conv=True (down_opt '
+            'convs) is not the avgpool full_adapter architecture')
+    flat = sorted({int(k.split('.')[1]) for k in sd
+                   if k.startswith('body.')})
+    nums_rb = (len(flat) // len(cfg.channels)) or 1
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith('body.'):
+            out[k] = v
+            continue
+        parts = k.split('.')
+        idx = int(parts[1])
+        i, j = idx // nums_rb, idx % nums_rb
+        rest = '.'.join(parts[2:])
+        if rest.startswith('in_conv.'):
+            out[f'body.{i}.{rest}'] = v
+        else:
+            out[f'body.{i}.resnets.{j}.{rest}'] = v
+    return out
 
 
 def preprocess_adapter_image(image, height: int, width: int) -> np.ndarray:

@@ -13,7 +13,9 @@ Port of mixofshow_tpu/models/unet.py. ED-LoRA specifics:
   * training asks for the cross-attention probabilities
     (`return_cross_probs`, optionally only the concept columns
     `prob_columns`) for the attention regularizer, and may recompute each
-    transformer in the backward (`remat`);
+    transformer in the backward (`remat`); an attention controller asks for
+    those of the layers `cross_layer_query_sizes` picks (a set of layer
+    indices);
   * gradient fusion asks for the fp32 input Grams of the spatial linears
     (`capture_grams`: DEFAULT_GRAM_POINTS, ALL_GRAM_POINTS or a tuple of
     point names), per cross-attention layer index.
@@ -97,6 +99,32 @@ def cross_layer_paths(cfg: UNetConfig):
             paths += [f'up_blocks/{i}/attentions/{j}'
                       for j in range(cfg.layers_per_block + 1)]
     return paths
+
+
+def cross_layer_query_sizes(cfg: UNetConfig, h: int, w: int):
+    """(place, layer_idx, query count) of every cross-attention layer at
+    latent size (h, w), in layer order; callers keep the small maps (the
+    reference's <= 32² inference store, ptp_util.py:74-77)."""
+    sizes = []
+    idx = 0
+    ch, cw = h, w
+    for i, has_cross in enumerate(cfg.down_cross):
+        if has_cross:
+            for _ in range(cfg.layers_per_block):
+                sizes.append(('down', idx, ch * cw))
+                idx += 1
+        if i < len(cfg.block_out_channels) - 1:
+            ch, cw = -(-ch // 2), -(-cw // 2)  # stride-2 conv, padding 1
+    sizes.append(('mid', idx, ch * cw))
+    idx += 1
+    for i, has_cross in enumerate(cfg.up_cross):
+        if has_cross:
+            for _ in range(cfg.layers_per_block + 1):
+                sizes.append(('up', idx, ch * cw))
+                idx += 1
+        if i < len(cfg.block_out_channels) - 1:
+            ch, cw = ch * 2, cw * 2
+    return sizes
 
 
 # ------------------------------------------------------------------ modules
@@ -370,7 +398,7 @@ class UNet(nn.Module):
     def forward(self, sample, timesteps, encoder_hidden_states, lora=None,
                 lora_alpha: float = 1.0, cross_kv=None,
                 adapter_features=None, cross_attn_override=None,
-                fuse_attention=False, return_cross_probs: bool = False,
+                fuse_attention=False, return_cross_probs=False,
                 prob_columns=None, remat: bool = False,
                 capture_grams=False):
         """Predict noise. sample (B, 4, h, w) NCHW; timesteps (B,) or a
@@ -380,7 +408,9 @@ class UNet(nn.Module):
         every cross-attention (see Transformer.forward); `fuse_attention`
         False or 'packed' (see the module docstring); `remat` recomputes
         each transformer in the backward (torch.utils.checkpoint);
-        `capture_grams` True (DEFAULT_GRAM_POINTS) or a tuple of points.
+        `capture_grams` True (DEFAULT_GRAM_POINTS) or a tuple of points;
+        `return_cross_probs` True (every cross-attention layer) or a set of
+        layer indices (only those build a map).
 
         Returns the prediction, or with `return_cross_probs` or
         `capture_grams` (prediction, aux): aux['cross_probs'] lists (place,
@@ -407,8 +437,10 @@ class UNet(nn.Module):
         def tfm(mod, x, blora, place):
             nonlocal idx
             kv = None if cross_kv is None else cross_kv[idx]
+            probs_here = return_cross_probs is True or (
+                bool(return_cross_probs) and idx in return_cross_probs)
             args = (x, ehs, idx, heads, blora, lora_alpha, kv, place,
-                    cross_attn_override, fuse_attention, return_cross_probs,
+                    cross_attn_override, fuse_attention, probs_here,
                     prob_columns, points)
             if remat:
                 out, probs, grams = torch.utils.checkpoint.checkpoint(

@@ -1,7 +1,7 @@
 """EDLoRAPipeline: single/multi-concept text-to-image sampling.
 
-Port of mixofshow_tpu/pipelines/pipeline_edlora.py (plain sampling; the
-attention-controller path, int8 serving and mesh sharding are later work).
+Port of mixofshow_tpu/pipelines/pipeline_edlora.py (plain sampling and the
+attention-controller path; int8 serving and mesh sharding are later work).
 One call:
   1. expands concept tokens into 16 layerwise prompts and tokenizes on the
      host;
@@ -14,6 +14,13 @@ One call:
   5. VAE-decodes and converts to uint8 on the device.
 Only `output_type` conversion (and `PendingSample.result`) waits for the
 device, so `submit()` returns while the work is still queued.
+
+With a controller attached (`set_controller`, a utils.ptp.AttentionStore)
+the UNet also returns the fp32 cross-attention probabilities of the layers
+with at most `controller.max_size`² queries; they are summed over the steps
+on the device and handed to `controller.store_summed` once after the loop,
+as the JAX package's scan carries them. The 77-key cross-attention takes
+the same dense route with or without capture, so the images do not change.
 
 Noise: with `latents=None` the initial noise comes from a torch.Generator on
 the pipeline's device seeded with `seed`; it differs from the JAX
@@ -29,6 +36,7 @@ import torch
 from mixofshow_tpu_torch.diffusion import DPMSolverMultistep
 from mixofshow_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNet
 from mixofshow_tpu_torch.models.lora import map_lora
+from mixofshow_tpu_torch.models.unet import cross_layer_query_sizes
 from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     bind_concept_prompt)
 from mixofshow_tpu_torch.text.tokenizer import CLIPTokenizer
@@ -66,12 +74,32 @@ class EDLoRAPipeline:
         self.unet_lora = map_lora(unet_lora, self._on_device)
         self.text_lora = map_lora(text_lora, self._on_device)
         self.lora_alpha = lora_alpha
+        self.controller = None
 
     def _on_device(self, t):
         return torch.as_tensor(t).to(device=self.device, dtype=self.dtype)
 
     def set_new_concept_cfg(self, new_concept_cfg: Optional[Dict] = None):
         self.new_concept_cfg = new_concept_cfg
+
+    def set_controller(self, controller):
+        """Attach an attention controller (utils.ptp.AttentionStore) that is
+        fed the cross-attention maps of each sampling call (reference
+        set_controller, pipeline_edlora.py:107); a controller with a
+        `step_callback(latents)` is also called after every step with the
+        NCHW fp32 latents on the device, and what it returns (unless None)
+        replaces them. None detaches."""
+        self.controller = controller
+
+    def _capture_layers(self, h: int, w: int):
+        """The controller's layers at latent size (h, w): those with at most
+        max_size² queries, as (place, layer_idx)."""
+        if self.controller is None:
+            return ()
+        top = self.controller.max_size ** 2
+        return tuple((place, idx) for place, idx, q in
+                     cross_layer_query_sizes(self.unet.cfg, h, w)
+                     if q <= top)
 
     # ------------------------------------------------------------ encoding
     def _encode_texts(self, texts):
@@ -124,25 +152,53 @@ class EDLoRAPipeline:
         return lat
 
     def _denoise(self, embeds, lat, guidance_scale, num_inference_steps,
-                 do_cfg, callback=None, callback_steps=1, **unet_kw):
-        """The CFG denoise loop; `unet_kw` goes to every UNet eval."""
+                 do_cfg, callback=None, callback_steps=1, capture=(),
+                 **unet_kw):
+        """The CFG denoise loop; `unet_kw` goes to every UNet eval. Returns
+        the final latents and {(place, layer_idx): fp32 probabilities
+        summed over the steps} of the `capture` layers."""
         solver = self.scheduler
         coeffs = solver.step_coeffs(num_inference_steps)
         lora, alpha = self.unet_lora, self.lora_alpha
+        layers = frozenset(idx for _, idx in capture)
+        step_callback = getattr(self.controller, 'step_callback', None)
         sample, m_prev = lat, torch.zeros_like(lat)
+        psum = {}
         for i in range(len(coeffs.timestep)):
             latent_in = torch.cat([sample, sample]) if do_cfg else sample
             t = int(coeffs.timestep[i])
             ts = torch.full((latent_in.shape[0],), t, device=self.device)
             eps = self.unet(latent_in.to(self.dtype), ts, embeds, lora,
-                            alpha, fuse_attention='packed', **unet_kw).float()
+                            alpha, fuse_attention='packed',
+                            return_cross_probs=layers, **unet_kw)
+            if layers:
+                eps, aux = eps
+                for place, idx, probs in aux['cross_probs']:
+                    if (place, idx) in psum:
+                        psum[(place, idx)].add_(probs)
+                    else:
+                        psum[(place, idx)] = probs.float().clone()
+            eps = eps.float()
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
             sample, m_prev = solver.step(sample, m_prev, eps, coeffs, i)
+            if step_callback is not None:
+                stepped = step_callback(sample)
+                if stepped is not None:
+                    sample = torch.as_tensor(stepped).to(sample)
             if callback is not None and i % callback_steps == 0:
                 callback(i, t, sample)
-        return sample
+        return sample, psum
+
+    def _feed_controller(self, psum, num_inference_steps: int):
+        """Hand the summed maps to the controller, in (place, layer_idx)
+        order, as numpy on the host (one wait for the device)."""
+        if self.controller is not None:
+            self.controller.store_summed(
+                [(place, idx, m.cpu().numpy())
+                 for (place, idx), m in sorted(psum.items())],
+                num_inference_steps)
 
     def _decode(self, final, output_type: str):
         """Device-side output: latents, float NHWC images in [0, 1], or
@@ -185,10 +241,13 @@ class EDLoRAPipeline:
         embeds = embeds.to(self.dtype)
         ckv = self.unet.cross_attention_kv(embeds, self.unet_lora,
                                            self.lora_alpha)
-        final = self._denoise(embeds, lat, guidance_scale,
-                              num_inference_steps, do_cfg, callback,
-                              callback_steps, cross_kv=ckv)
-        return self._decode(final, output_type)
+        final, psum = self._denoise(
+            embeds, lat, guidance_scale, num_inference_steps, do_cfg,
+            callback, callback_steps,
+            self._capture_layers(height // 8, width // 8), cross_kv=ckv)
+        out = self._decode(final, output_type)
+        self._feed_controller(psum, num_inference_steps)
+        return out
 
     def __call__(self,
                  prompt: Union[str, Sequence[str]] = None,
@@ -211,7 +270,9 @@ class EDLoRAPipeline:
         `latents` takes external noise, NCHW (B, 4, h, w) or NHWC.
         `prompt_embeds` bypasses encoding with (2B or B, 16, 77, C)
         embeddings. `callback(i, t, latents)` runs every `callback_steps`
-        steps with the NCHW fp32 latents on the device."""
+        steps with the NCHW fp32 latents on the device. An attached
+        controller receives the call's cross-attention maps
+        (`set_controller`)."""
         out = self._sample_on_device(
             prompt, height, width, num_inference_steps, guidance_scale,
             negative_prompt, num_images_per_prompt, latents, prompt_embeds,
@@ -226,6 +287,9 @@ class EDLoRAPipeline:
         overlaps host-side tokenization and conversion with device work."""
         if kwargs.get('callback') is not None:
             raise ValueError('submit() takes no callback (it would sync)')
+        if self.controller is not None:
+            raise ValueError('submit() with a controller would sync; use '
+                             '__call__')
         out = self._sample_on_device(*args, output_type=output_type,
                                      **kwargs)
         return PendingSample(out, output_type)

@@ -255,6 +255,9 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
                           output_type: str = 'pil'):
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f'output_type must be one of {OUTPUT_TYPES}')
+        if self.controller is not None:
+            raise ValueError('regional sampling takes no attention '
+                             'controller (the JAX package\'s has none)')
         use_cfg = guidance_scale > 1.0
         n = int(num_images_per_prompt)
         neg = negative_prompt[0] if isinstance(negative_prompt,
@@ -283,10 +286,10 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
             [box for _, box in region_list], self.unet.cfg.attention_heads,
             self.unet.cross_attention_kv(prompt_embeds),
             [self.unet.cross_attention_kv(e) for e, _ in region_list])
-        final = self._denoise(prompt_embeds, lat, guidance_scale,
-                              num_inference_steps, use_cfg,
-                              adapter_features=adapter_features,
-                              cross_attn_override=override)
+        final, _ = self._denoise(prompt_embeds, lat, guidance_scale,
+                                 num_inference_steps, use_cfg,
+                                 adapter_features=adapter_features,
+                                 cross_attn_override=override)
         return self._decode(final, output_type)
 
     def __call__(self, *args, output_type: str = 'pil', **kwargs):

@@ -82,16 +82,21 @@ def load_models(pretrained_path: str, device, seed: int = 0,
     return ModelBundle(unet.eval(), te.eval(), vae.eval(), CLIPTokenizer())
 
 
-def load_t2i_adapter(kind: str, size: str, device, seed: int = 0,
-                     dtype=torch.float32) -> T2IAdapter:
-    """Random-init T2I-Adapter: `kind` 'keypose' (3 input channels) or
-    'sketch' (1), `size` 'sd15' (channels 320/640/1280/1280) or 'tiny', drawn
-    from a generator seeded `seed` on `device`."""
+def t2i_adapter_config(kind: str, size: str) -> T2IAdapterConfig:
+    """`kind` 'keypose' (3 input channels) or 'sketch' (1), `size` 'sd15'
+    (channels 320/640/1280/1280) or 'tiny'."""
     cins = {'keypose': 3, 'sketch': 1}
     if kind not in cins or size not in ('sd15', 'tiny'):
         raise ValueError(f'unsupported adapter {kind!r} at {size!r}')
-    cfg = T2IAdapterConfig.tiny(cins[kind]) if size == 'tiny' else \
+    return T2IAdapterConfig.tiny(cins[kind]) if size == 'tiny' else \
         T2IAdapterConfig(in_channels=cins[kind])
+
+
+def load_t2i_adapter(kind: str, size: str, device, seed: int = 0,
+                     dtype=torch.float32) -> T2IAdapter:
+    """Random-init T2I-Adapter of `t2i_adapter_config(kind, size)`, drawn
+    from a generator seeded `seed` on `device`."""
+    cfg = t2i_adapter_config(kind, size)
     dev = as_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():

@@ -668,3 +668,42 @@ def test_scale_bias_act_at_the_validation_batch(dev, shape, act):
     ref = gs.scale_bias_act_plain(x, a, b, act)
     err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= APPLY_TOL[torch.bfloat16]
+
+
+# The regional CLI's wide canvases: 512x1024 (2 images x CFG) with the
+# real_pose layout's three boxes, normalized as the CLI normalizes them,
+# at the 64x128 and 8x16 grids; regionally_sample.sh's two boxes, which
+# end at pixel 1024 of a 512-high canvas (2.0, past the lower edge); and
+# K1 at the 1024x2048 canvas's res-64 layer
+WIDE_BOXES = [[4 / 512, 28 / 1024, 508 / 512, 251 / 1024],
+              [4 / 512, 215 / 1024, 508 / 512, 453 / 1024],
+              [4 / 512, 651 / 1024, 508 / 512, 996 / 1024]]
+PAST_EDGE_BOXES = [[12 / 512, 36 / 1024, 2.0, 600 / 1024],
+                   [18 / 512, 696 / 1024, 2.0, 1180 / 1024]]
+
+
+@pytest.mark.parametrize('b,h,w,heads,d,sk,boxes', [
+    (4, 64, 128, 8, 40, 77, WIDE_BOXES),
+    (4, 8, 16, 8, 160, 77, WIDE_BOXES),
+    (2, 64, 128, 8, 40, 77, PAST_EDGE_BOXES),
+    (2, 16, 32, 8, 160, 77, PAST_EDGE_BOXES)])
+def test_region_attention_on_wide_grids(dev, b, h, w, heads, d, sk, boxes):
+    args = _region_inputs(dev, torch.bfloat16, b, h, w, heads, d, sk, boxes)
+    px = args[5]
+    assert (px[:, 2] > h).any() == (boxes is PAST_EDGE_BOXES)
+    out = ra.region_attention(*args)
+    ref = ra.region_attention_plain(*args)
+    assert twin_err(out, ref) <= REGION_BF16_REL
+    for bad in k7_faults(*args):
+        assert twin_err(bad, ref) > REGION_BF16_REL
+    assert torch.equal(ra.region_attention(*args), out)
+
+
+def test_attn_fwd_at_the_wide_canvas(dev):
+    q, k, v = (_randn(dev, 2, 8192, 8, 80, dtype=torch.bfloat16, seed=i)
+               for i in (1, 2, 3))
+    out = fa.attn_fwd(q, k, v)
+    ref = fa.attn_fwd_plain(q, k, v)
+    assert twin_err(out, ref) <= ATTN_BF16_REL
+    for bad in k1_faults(q, k, v, 8192):
+        assert twin_err(bad, ref) > ATTN_BF16_REL
