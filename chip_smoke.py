@@ -42,7 +42,16 @@ line when any fails, or when no CUDA device is visible):
                 without Dvec) that must come out over the bf16 bound; K8 at
                 the VAE decoder's GroupNorm shapes, its planted faults (a
                 and b swapped, SiLU dropped) over its bf16 bound, and its
-                backward against autograd of the plain version;
+                backward against autograd of the plain version; K4's
+                forward also at the int8 serving requests' shapes
+                (FLASH_INFERENCE), with SDPA's time;
+  3b. int8    — the int8 serving modes' dense pool (INT8_DENSE, phase 5's
+                request's GEGLU, projections and cross K/V) and resnet convs
+                (INT8_CONV): the card's int32 accumulators against exact
+                integer products, the round trip (absmax, quantize,
+                torch._int_mm, rescale; im2col for a conv) against the bf16
+                product, each with its least time; one line INT8_TABLE
+                {json} before the result;
   4. wiring   — the tiny config in fp32 (TF32 off) at 512x512 on the card
                 and on the CPU: EDLoRAPipeline, 2 steps (K1, K2, K3, K8
                 launch, no flash kernel) and RegionallyT2IAdapterPipeline
@@ -64,12 +73,21 @@ line when any fails, or when no CUDA device is visible):
                 queries, rows summing to 1 over the 77 keys within 1e-3,
                 and images within one uint8 level of the first request's
                 (the share that is identical printed);
+  5q. int8    — phase 5's request on the same modules with quantize='int8'
+                and 'int8+conv', two requests each: finite images, not
+                constant, the two identical; per request K1 0 and K4 500
+                (a quantized attn1 leaves the packed route), K2/K8 30 and
+                K3 1; prints the seconds beside the bf16 request's, the
+                peak memory and the relative L2 difference from the bf16
+                images (reported, not gated);
   6. regional — regional path: the same widths plus a full-width keypose
                 adapter, three concepts in three boxes (bench.py's layout),
                 the repository's keypose image, 2 images at 512x512, CFG
                 7.5, 50 steps, one request through __call__ and one through
                 submit().result(). Checks as in 5, and that every request
                 launched K7 16 x 50 times and K1, K2, K3 too;
+  6q. int8    — phase 6's request in both int8 modes, as 5q (K7 800 a
+                request besides);
   7. train    — ED-LoRA training at SD1.5 width through the port's CLI
                 (train_edlora.main, in-process) on the repository's config
                 options/train/EDLoRA/real/EDLoRA_hermione_B4_Repeat500.yml
@@ -109,6 +127,13 @@ line when any fails, or when no CUDA device is visible):
                 latents; alpha 1.0 within one uint8 level of phase 7's last
                 validation at alpha 1.0 (the share that is identical
                 printed);
+  7d. ddp     — phase 7's config with validation off through
+                `python -m torch.distributed.run --standalone
+                --nproc_per_node 1 -m mixofshow_tpu_torch.train_edlora
+                --device cuda` in a subprocess (one card hosts one NCCL
+                rank; world 2 is held on the CPU by the tests): the process
+                group is NCCL, the train states and deltas at every save
+                equal phase 7's bitwise, the logged losses phase 7's;
   8. fusion   — gradient fusion at SD1.5 width through the port's CLI
                 (gradient_fusion.main, in-process) at fuse.sh's operating
                 point (exact solve, 20 spatial steps, 512, bf16 capture) on
@@ -144,9 +169,10 @@ line when any fails, or when no CUDA device is visible):
                 request: K1 500 (750 at 1024x2048), K7 800, K2 and K8 30,
                 K3 1, no flash kernel. Prints the load, sampling and save
                 seconds and the peak device memory.
-Phases 5 and 6 also check that no flash kernel launched. Then one JSON line
-with the kernels (launches: phases 5 to 9 together, 7b and 7c included), the
-nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+Phases 5 and 6 also check that no flash kernel launched. Then the INT8_TABLE
+line, one JSON line with the kernels (launches: phases 5 to 9 together, 5q,
+6q, 7b and 7c included; 7d runs in its own process), the nvidia-smi line,
+and the last line {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -159,6 +185,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -191,6 +218,7 @@ from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import flash_attention as fl
 from mixofshow_tpu_torch.ops import fused_attention as fa
 from mixofshow_tpu_torch.ops import gn_stats as gs
+from mixofshow_tpu_torch.ops import quant
 from mixofshow_tpu_torch.ops import region_attention as ra
 from mixofshow_tpu_torch.ops.solve import output_difference
 from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
@@ -268,6 +296,8 @@ FUSION_STEPS = 20
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+# ... and dense int8 tensor-core operations/s
+PEAK_INT8 = 1979e12
 # cycles of the sleep kernel cuda_ms queues its calls behind (~50 ms)
 SLEEP_CYCLES = 100_000_000
 
@@ -303,6 +333,28 @@ DECODE_NORMS_2X = [((512, 128, 256), 11), ((512, 256, 512), 6),
 TWIN_SCORE_BYTES = 16 * 2 ** 30
 TWIN_ROWS = 512
 FLASH_KERNELS = ('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq')
+# K4 at the int8 serving requests' shapes (phases 5q and 6q: a quantized
+# attn1 leaves K1 for sdpa's flash route): 512x512, 2 images with CFG, the
+# res-64 and res-32 self-attentions
+FLASH_INFERENCE = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+# the int8 serving modes' dense pool at phase 5's request (CFG batch 4 at
+# 512x512), (name, rows, K, N): the GEGLU in/out at res 64 and 32, the
+# attention projections at res 64, 32 and 16, the hoisted cross K/V
+INT8_DENSE = [('geglu64_in', 4 * 4096, 320, 2560),
+              ('geglu64_out', 4 * 4096, 1280, 320),
+              ('geglu32_in', 4 * 1024, 640, 5120),
+              ('geglu32_out', 4 * 1024, 2560, 640),
+              ('proj64', 4 * 4096, 320, 320),
+              ('proj32', 4 * 1024, 640, 640),
+              ('proj16', 4 * 256, 1280, 1280),
+              ('cross_kv', 4 * 77, 768, 320)]
+# ... and its resnet 3x3 convs at res 64 ('int8+conv'), (B, C, H, W)
+INT8_CONV = [('conv64', (4, 320, 64, 64)), ('conv32', (4, 640, 32, 32))]
+# one int8 request's launches beside the bf16 request's: attn1's 500 K1
+# launches become K4's
+QUANT_REQUEST = {'attn_fwd': 0, 'flash_fwd': 10 * 50, 'flash_bwd_dkv': 0,
+                 'flash_bwd_dq': 0, 'gn_spatial_sums': 30, 'gn_apply': 30,
+                 'attn_block': 1, 'region_attn': 0}
 PLAIN_PATH_KERNELS = ('attn_fwd', 'gn_spatial_sums', 'attn_block',
                       'gn_apply')
 SAMPLING_KERNELS = PLAIN_PATH_KERNELS + ('region_attn',)
@@ -646,8 +698,149 @@ def phase_kernels(dev):
               'planted fault')
         res.setdefault('region_attn', row(err, ms, pms, bnd))
     res.update(flash_kernel_checks(dev))
+    flash_inference_checks(dev)
     res['gn_apply'] = apply_kernel_checks(dev)
     return res
+
+
+def flash_inference_checks(dev):
+    """K4 (forward only, inference mode) at FLASH_INFERENCE, the shapes the
+    int8 serving requests give it, against its twin, with its time, its
+    least time and SDPA's."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    for b, s, h, d in FLASH_INFERENCE:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        with torch.inference_mode():
+            o, lse = fl.flash_fwd(q, k, v)
+            ro, rlse = fl.flash_fwd_plain(q, k, v)
+            rel, err = _flash_err(o, ro), _max_err(o, ro)
+            lse_err = _max_err(lse, rlse)
+            ms = cuda_ms(lambda: fl.flash_fwd(q, k, v))
+            pms = cuda_ms(lambda: fl.flash_fwd_plain(q, k, v))
+            bnd = least_time(nbytes(q, k, v, o, lse),
+                             attn_flops(b, h, s, s, d, 2), PEAK_BF16)
+            lib = sdpa_ms(q, k, v)
+        print(f'[kernels] flash_fwd inference (B,S,H,D)=({b},{s},{h},{d}) '
+              f'bf16 (the int8 requests\' attn1): error vs twin {rel:.3e} '
+              f'of max|twin| (bound {FLASH_BF16_REL}), max_abs_err '
+              f'{err:.3e}, lse {lse_err:.3e} (bound {FLASH_LSE_BOUND}); '
+              f'kernel {ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} '
+              f'ms ({bnd[1]}), SDPA {lib:.4f} ms', flush=True)
+        check(math.isfinite(rel) and rel <= FLASH_BF16_REL and
+              lse_err <= FLASH_LSE_BOUND, 'flash_fwd disagrees at the int8 '
+              'requests\' shapes')
+
+
+def phase_int8_table(dev, card):
+    """The int8 serving modes' dense pool (INT8_DENSE) and resnet convs
+    (INT8_CONV): the card's int32 accumulators against exact integer
+    products, then the round trip (absmax, quantize, torch._int_mm,
+    rescale; for a conv the im2col too) against the bf16 product, both
+    from CUDA events, with the least times. Returns the table."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    table = []
+    for name, m, k, n in INT8_DENSE:
+        x = torch.randn(m, k, generator=g, device=dev).to(bf)
+        lin = nn.Linear(k, n, bias=False, device=dev, dtype=bf)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(n, k, generator=g, device=dev)
+                             / math.sqrt(k))
+        quant.quantize_dense(lin)
+        w = lin.weight.detach()
+        xq, _ = quant.quantize_activation(x, -1)
+        acc = quant.int_mm(xq, lin.wq)
+        exact = xq[:64].cpu().int() @ lin.wq.cpu().int().t()
+        check(torch.equal(acc[:64].cpu(), exact),
+              f'int8 {name}: the card\'s accumulators are not exact')
+        y = quant.int8_matmul(x, lin.wq, lin.wscale)
+        ref = F.linear(x, w)
+        rel = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+        t_rt = cuda_ms(lambda: quant.int8_matmul(x, lin.wq, lin.wscale))
+        t_mm = cuda_ms(lambda: quant.int_mm(xq, lin.wq))
+        t_bf = cuda_ms(lambda: F.linear(x, w))
+        flops = 2 * m * k * n
+        b_rt = least_time(nbytes(x, lin.wq, lin.wscale) + m * n * 2, flops,
+                          PEAK_INT8)
+        b_bf = least_time(nbytes(x, w) + m * n * 2, flops, PEAK_BF16)
+        table.append({'name': name, 'shape': [m, k, n],
+                      'int8_roundtrip_ms': t_rt, 'int_mm_ms': t_mm,
+                      'bf16_ms': t_bf, 'int8_bound_ms': b_rt[0],
+                      'bf16_bound_ms': b_bf[0], 'rel_l2_vs_bf16': rel})
+    for name, (b, c, h, w_) in INT8_CONV:
+        x = torch.randn(b, c, h, w_, generator=g, device=dev).to(bf)
+        conv = nn.Conv2d(c, c, 3, padding=1, bias=False, device=dev,
+                         dtype=bf)
+        quant.quantize_conv(conv)
+        wt = conv.weight.detach()
+        y = quant.int8_conv(x, conv.wq, conv.wscale, 1, 1)
+        ref = F.conv2d(x, wt, padding=1)
+        rel = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+        t_rt = cuda_ms(lambda: quant.int8_conv(x, conv.wq, conv.wscale, 1,
+                                               1))
+        t_bf = cuda_ms(lambda: F.conv2d(x, wt, padding=1))
+        flops = 2 * b * h * w_ * c * c * 9
+        b_rt = least_time(nbytes(x, conv.wq, conv.wscale) + nbytes(x),
+                          flops, PEAK_INT8)
+        b_bf = least_time(nbytes(x, wt) + nbytes(x), flops, PEAK_BF16)
+        table.append({'name': name, 'shape': [b, c, h, w_],
+                      'int8_roundtrip_ms': t_rt, 'int_mm_ms': None,
+                      'bf16_ms': t_bf, 'int8_bound_ms': b_rt[0],
+                      'bf16_bound_ms': b_bf[0], 'rel_l2_vs_bf16': rel})
+    for r in table:
+        check(r['rel_l2_vs_bf16'] < 2e-2,
+              f'int8 {r["name"]}: {r["rel_l2_vs_bf16"]} from bf16')
+        print(f'[int8] {r["name"]} {r["shape"]}: round trip '
+              f'{r["int8_roundtrip_ms"]:.4f} ms'
+              + ('' if r['int_mm_ms'] is None else
+                 f' (_int_mm alone {r["int_mm_ms"]:.4f} ms)')
+              + f', bf16 {r["bf16_ms"]:.4f} ms; least int8 '
+              f'{r["int8_bound_ms"]:.4f} ms, bf16 {r["bf16_bound_ms"]:.4f} '
+              f'ms; relative L2 to bf16 {r["rel_l2_vs_bf16"]:.2e}; {card}',
+              flush=True)
+    return table
+
+
+def _quant_requests(tag, make_pipe, args, kw, ref, ref_s, want, card):
+    """Phases 5q and 6q: the request of phase 5 or 6 in each int8 serving
+    mode, on the same modules, twice: the launches of each request (`want`),
+    finite images not constant, the seconds beside the bf16 request's, the
+    peak memory and the relative L2 difference from the bf16 images."""
+    ref = ref.astype(np.float64) / 255.0
+    for mode in ('int8', 'int8+conv'):
+        t0 = time.perf_counter()
+        pipe = make_pipe(mode)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        outs, secs, reqs = [], [], []
+        for _ in range(2):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            outs.append(pipe(*args, **dict(kw, output_type='np')))
+            secs.append(time.perf_counter() - t0)
+            reqs.append(_sub(ops.launch_counts(), before))
+        peak = torch.cuda.max_memory_allocated()
+        out = outs[-1]
+        rel = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+        print(f'[{tag}q] quantize={mode!r}: quantized in {t_quant:.2f} s; '
+              f'requests {secs[0]:.3f} s (first) and {secs[1]:.3f} s '
+              f'(second) against bf16\'s {ref_s:.3f} s (its second '
+              f'request, this call); peak device memory '
+              f'{peak / 2 ** 30:.2f} GiB; images against bf16\'s: '
+              f'relative L2 {rel:.4e}, largest difference '
+              f'{float(np.abs(out - ref).max()):.4f}; launches per request '
+              f'{reqs[1]}; {card}', flush=True)
+        check(out.shape == ref.shape and all(np.isfinite(o).all()
+                                             for o in outs),
+              f'{tag}q: {mode} gave {out.shape} or a non-finite image')
+        check(all(float(im.max()) > float(im.min()) for im in out),
+              f'{tag}q: {mode} gave a constant image')
+        check(np.array_equal(outs[0], outs[1]),
+              f'{tag}q: {mode}: two runs with the same latents differ')
+        check(all(r == {**r, **want} for r in reqs),
+              f'{tag}q: {mode}: launches {reqs}, expected {want}')
 
 
 def apply_kernel_checks(dev):
@@ -1049,7 +1242,11 @@ def phase_main(dev, card):
           'differs from the one without by more than one level')
     check(req == {k: v // 2 for k, v in counts.items()},
           f'main: the controller request launched {req}')
-    return after
+    _quant_requests('main', lambda mode: EDLoRAPipeline(
+        b.unet, b.text_encoder, b.vae, b.tokenizer, dev, torch.bfloat16,
+        new_concept_cfg=cfg, concept_embedding=table, quantize=mode),
+        (prompts,), kw, out_call, t_submit, QUANT_REQUEST, card)
+    return ops.launch_counts()
 
 
 def phase_regional(dev, card):
@@ -1105,7 +1302,12 @@ def phase_regional(dev, card):
           f'request), submit().result() {t_submit:.3f} s ({2 / t_submit:.4f}'
           f' img/s; submit() returned after {t_queued:.3f} s); {card}; '
           f'launches per request {first}, {second}', flush=True)
-    return counts
+    _quant_requests('regional', lambda mode: RegionallyT2IAdapterPipeline(
+        b.unet, b.text_encoder, b.vae, b.tokenizer, dev, torch.bfloat16,
+        new_concept_cfg=cfg, concept_embedding=table,
+        keypose_adapter=adapter, quantize=mode), (layout,), kw, out_call,
+        t_submit, {**QUANT_REQUEST, 'region_attn': 16 * 50}, card)
+    return ops.launch_counts()
 
 
 def _concept_batch(trainer, b, img, seed):
@@ -1563,22 +1765,87 @@ def phase_resume(dev, card, root, phase7):
     return _sub(marks[-1][2], marks[0][2]), archived[0]
 
 
-def _same_state(got, want, path='state'):
-    """Bitwise equality of two train_state_dict payloads."""
+def _same_state(got, want, path='resume: state'):
+    """Bitwise equality of two train_state_dict (or delta) payloads."""
     if torch.is_tensor(want):
         check(torch.is_tensor(got) and got.dtype == want.dtype and
-              torch.equal(got, want), f'resume: {path} differs')
+              torch.equal(got, want), f'{path} differs')
     elif isinstance(want, dict):
         check(isinstance(got, dict) and got.keys() == want.keys(),
-              f'resume: {path} keys differ')
+              f'{path} keys differ')
         for k in want:
             _same_state(got[k], want[k], f'{path}/{k}')
     elif isinstance(want, (list, tuple)):
-        check(len(got) == len(want), f'resume: {path} length differs')
+        check(len(got) == len(want), f'{path} length differs')
         for i, (a, b) in enumerate(zip(got, want)):
             _same_state(a, b, f'{path}/{i}')
     else:
-        check(got == want, f'resume: {path} {got} != {want}')
+        check(got == want, f'{path} {got} != {want}')
+
+
+def _logged_losses(log_dir):
+    """{step: the loss part of its iteration line} from a run's log file."""
+    text = next(Path(log_dir).glob('train_*.log')).read_text()
+    out = {}
+    for m in re.finditer(r'Iter:\s*([\d,]+), lr:\([^)]*\)\] '
+                         r'(?:\[eta: [^\]]*\] )?(.*)$', text, re.M):
+        # the first run's line: later in-process runs log to the same file
+        out.setdefault(int(m.group(1).replace(',', '')), m.group(2).strip())
+    return out
+
+
+def phase_ddp(card, root, archived):
+    """Phase 7d: phase 7's run through torchrun at world 1, as a user
+    launches it, validation off: the process group must be NCCL, the train
+    states and deltas at every save bitwise phase 7's (archived by 7b),
+    the logged losses phase 7's."""
+    opt = yaml.safe_load((root / 'edlora_sd15.yml').read_text())
+    opt['val']['val_during_save'] = False
+    opt['path'] = {'experiments_root': str(root / 'experiment_ddp')}
+    yml = root / 'edlora_sd15_ddp.yml'
+    yml.write_text(yaml.safe_dump(opt))
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + os.environ.get('PYTHONPATH', '').split(os.pathsep)))
+    argv = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            '--nproc_per_node', '1', '-m', 'mixofshow_tpu_torch.train_edlora',
+            '-opt', str(yml), '--device', 'cuda']
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    t_run = time.perf_counter() - t0
+    check(proc.returncode == 0, f'ddp: torchrun exited {proc.returncode}: '
+          f'{out[-4000:]}')
+    exp = root / 'experiment_ddp'
+    log = next(exp.glob('train_*.log')).read_text()
+    check('data parallel: 1 process(es), process group nccl' in log,
+          'ddp: the run did not join an NCCL process group of one')
+    saved = sorted(os.listdir(exp / 'models'))
+    check(saved == sorted(os.listdir(archived / 'models')),
+          f'ddp: saved {saved}')
+    for name in saved:
+        _same_state(torch.load(exp / 'models' / name, map_location='cpu',
+                               weights_only=True),
+                    torch.load(archived / 'models' / name,
+                               map_location='cpu', weights_only=True),
+                    f'ddp: {name}')
+    losses, want = _logged_losses(exp), _logged_losses(archived)
+    check(sorted(losses) == list(range(1, TRAIN_STEPS + 1)) and
+          losses == want, f'ddp: logged losses {losses}, phase 7 {want}')
+    print(f'[ddp] python -m torch.distributed.run --standalone '
+          f'--nproc_per_node 1 -m mixofshow_tpu_torch.train_edlora (phase '
+          f'7\'s config, validation off): process group nccl, world 1; '
+          f'{TRAIN_STEPS} steps in {t_run:.2f} s with the process start, '
+          f'the model load and the saves; {saved} bitwise equal to phase '
+          f'7\'s; logged losses equal at steps {sorted(losses)} '
+          f'({losses[TRAIN_STEPS]} at the last); {card}', flush=True)
 
 
 def _pngs(d):
@@ -1931,6 +2198,7 @@ def main():
           f'torch {torch.__version__} CUDA {torch.version.cuda}', flush=True)
     phase_build(dev)
     kres = phase_kernels(dev)
+    int8 = phase_int8_table(dev, card)
     phase_wiring(dev)
     phase_wiring_train(dev)
     phase_wiring_fusion(dev)
@@ -1943,6 +2211,7 @@ def main():
         resume, archived = phase_resume(dev, card, scratch, phase7)
         sweep = phase_test_edlora(dev, card, scratch, delta, archived,
                                   phase7)
+        phase_ddp(card, scratch, archived)
         fusion, ckpt = phase_fusion(dev, card, delta, scratch / 'fusion')
         cli = phase_cli(dev, card, ckpt, scratch / 'cli')
     finally:
@@ -1952,6 +2221,7 @@ def main():
                 'replaces': rep, 'launches': sum(p[name] for p in runs),
                 **kres[name]}
                for name, (route, src, rep) in KERNEL_META.items()]
+    print('INT8_TABLE ' + json.dumps(int8))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -2,7 +2,7 @@
 
 The JAX package `mixofshow_tpu` is the reference; this package mirrors its
 layout (models/, ops/, diffusion/, text/, pipelines/, fusion/, data/,
-convert/, utils/) with one port module per reference module. It imports
+convert/, parallel/, utils/) with one port module per reference module. It imports
 torch and never jax, and never `mixofshow_tpu` (whose `__init__` loads
 jax).
 

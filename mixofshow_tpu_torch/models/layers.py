@@ -8,7 +8,10 @@ Conventions:
     package casts them); LoRA trees are nested dicts threaded to the call
     sites, as in the JAX package;
   * norms compute their statistics in fp32 whatever the activation dtype,
-    and apply a folded per-channel scale/bias in the activation dtype.
+    and apply a folded per-channel scale/bias in the activation dtype;
+  * a Linear or Conv2d that ops.quant.quantize_unet quantized carries int8
+    `wq` and fp32 `wscale` buffers; `dense` and `conv2d` route on them to
+    the int8 product (the serving modes), the LoRA delta on top.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch import nn
 
 from mixofshow_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_supported)
+from mixofshow_tpu_torch.ops.quant import int8_conv, int8_matmul
 
 
 # ----------------------------------------------------------------- dense/conv
@@ -30,8 +34,15 @@ def _lora_delta(x, lora, alpha):
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, lora=None, alpha: float = 1.0):
-    """y = x Wᵀ + b, plus the optional LoRA delta."""
-    y = F.linear(x, lin.weight, lin.bias)
+    """y = x Wᵀ + b, plus the optional LoRA delta; a quantized layer's
+    product is int8 (ops.quant.int8_matmul), its bias added after."""
+    wq = lin._buffers.get('wq')
+    if wq is None:
+        y = F.linear(x, lin.weight, lin.bias)
+    else:
+        y = int8_matmul(x, wq, lin.wscale)
+        if lin.bias is not None:
+            y = y + lin.bias.to(x.dtype)
     if lora is not None:
         y = y + _lora_delta(x, lora, alpha)
     return y
@@ -39,8 +50,15 @@ def dense(x: torch.Tensor, lin: nn.Linear, lora=None, alpha: float = 1.0):
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, lora=None, alpha: float = 1.0):
     """NCHW conv with the module's own stride/padding. LoRA applies to 1x1
-    convs as a per-pixel dense delta."""
-    y = conv(x)
+    convs as a per-pixel dense delta. A quantized conv runs
+    ops.quant.int8_conv, its bias added after."""
+    wq = conv._buffers.get('wq')
+    if wq is None:
+        y = conv(x)
+    else:
+        y = int8_conv(x, wq, conv.wscale, conv.stride, conv.padding)
+        if conv.bias is not None:
+            y = y + conv.bias.to(x.dtype)[:, None, None]
     if lora is not None:
         r = lora['down'].shape[0]
         down = lora['down'].to(x.dtype).reshape(r, -1, 1, 1)

@@ -161,7 +161,10 @@ def mh_attention(p: Attention, x, context, heads: int, lora=None,
                  return_probs: bool = False, return_pre_out: bool = False):
     """diffusers `Attention` equivalent; (B, S, C) in and out. `kv` supplies
     precomputed (B, Sk, H, D) key/value projections; `fuse='packed'` routes
-    >= 1024 keys to K1; `return_probs` returns (out, fp32 probabilities);
+    >= 1024 keys to K1 unless the projections are quantized (ops.quant: the
+    int8 projections then run through `dense` and the core through `sdpa`,
+    as the JAX package routes a quantized layer); `return_probs` returns
+    (out, fp32 probabilities);
     `return_pre_out` returns (out, the to_out layer's (B, S, C) input)."""
     if fuse not in (False, 'packed'):
         raise ValueError(f"fuse_attention must be False or 'packed', got "
@@ -169,7 +172,8 @@ def mh_attention(p: Attention, x, context, heads: int, lora=None,
     b, s, c = x.shape
     d = c // heads
     if fuse == 'packed' and kv is None and not return_probs \
-            and not return_pre_out and context.shape[1] >= PACKED_MIN_KEYS:
+            and not return_pre_out and context.shape[1] >= PACKED_MIN_KEYS \
+            and 'wq' not in p.to_q._buffers:
         def eff(name):
             w = getattr(p, name).weight
             lw = maybe(lora, name)

@@ -1,8 +1,8 @@
 """EDLoRAPipeline: single/multi-concept text-to-image sampling.
 
-Port of mixofshow_tpu/pipelines/pipeline_edlora.py (plain sampling and the
-attention-controller path; int8 serving and mesh sharding are later work).
-One call:
+Port of mixofshow_tpu/pipelines/pipeline_edlora.py (plain sampling, the
+attention-controller path and the int8 serving modes; data-parallel sweeps
+split their batches over processes, pipelines/validation.py). One call:
   1. expands concept tokens into 16 layerwise prompts and tokenizes on the
      host;
   2. CLIP-encodes them, [uncond; cond] order;
@@ -22,6 +22,16 @@ on the device and handed to `controller.store_summed` once after the loop,
 as the JAX package's scan carries them. The 77-key cross-attention takes
 the same dense route with or without capture, so the images do not change.
 
+`quantize='int8'` or `'int8+conv'` is the JAX package's opt-in serving
+mode (ops/quant.py): the UNet's transformer dense pool (and with '+conv'
+its resnet convs) runs int8 products with dynamic activation scales,
+quantized from the weights after their cast to `dtype`, as the JAX
+pipeline quantizes its cast tree. A quantized attn1 leaves the packed K1
+route: its projections run int8 and its core goes through `sdpa` (K4, the
+flash kernel, at 1024 keys and more). The quantization lives on the shared
+UNet module, so the pipeline built last over a UNet sets its mode; calling
+an earlier pipeline whose mode it changed raises.
+
 Noise: with `latents=None` the initial noise comes from a torch.Generator on
 the pipeline's device seeded with `seed`; it differs from the JAX
 package's noise for the same seed. Pass `latents` to reproduce a JAX run.
@@ -37,6 +47,7 @@ from mixofshow_tpu_torch.diffusion import DPMSolverMultistep
 from mixofshow_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNet
 from mixofshow_tpu_torch.models.lora import map_lora
 from mixofshow_tpu_torch.models.unet import cross_layer_query_sizes
+from mixofshow_tpu_torch.ops.quant import set_quantization
 from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     bind_concept_prompt)
 from mixofshow_tpu_torch.text.tokenizer import CLIPTokenizer
@@ -51,7 +62,9 @@ class EDLoRAPipeline:
     The modules are moved to `device` and cast to `dtype` IN PLACE (a copy of
     an SD1.5 UNet would double its memory). Unmerged LoRA trees (`unet_lora`,
     `text_lora`, nested dicts of {'down', 'up'} tensors) apply on the fly
-    with `lora_alpha`."""
+    with `lora_alpha`. `quantize` (None, 'int8' or 'int8+conv') sets the
+    UNet's serving mode after the cast; any other value raises
+    ValueError."""
 
     def __init__(self, unet: UNet, text_encoder: CLIPTextModel,
                  vae: AutoencoderKL, tokenizer: CLIPTokenizer, device,
@@ -59,10 +72,13 @@ class EDLoRAPipeline:
                  scheduler: Optional[DPMSolverMultistep] = None,
                  new_concept_cfg: Optional[Dict] = None,
                  concept_embedding=None,
-                 unet_lora=None, text_lora=None, lora_alpha: float = 1.0):
+                 unet_lora=None, text_lora=None, lora_alpha: float = 1.0,
+                 quantize: Optional[str] = None):
         self.device = as_device(device)
         self.dtype = dtype
         self.unet = unet.to(device=self.device, dtype=dtype).eval()
+        set_quantization(self.unet, quantize)
+        self.quantize = quantize
         self.text_encoder = text_encoder.to(device=self.device,
                                             dtype=dtype).eval()
         self.vae = vae.to(device=self.device, dtype=dtype).eval()
@@ -157,6 +173,11 @@ class EDLoRAPipeline:
         """The CFG denoise loop; `unet_kw` goes to every UNet eval. Returns
         the final latents and {(place, layer_idx): fp32 probabilities
         summed over the steps} of the `capture` layers."""
+        if self.unet.quantize_mode != self.quantize:
+            raise RuntimeError(
+                f'this pipeline serves quantize={self.quantize!r} but its '
+                f'UNet was set to {self.unet.quantize_mode!r} by a pipeline '
+                f'built after it')
         solver = self.scheduler
         coeffs = solver.step_coeffs(num_inference_steps)
         lora, alpha = self.unet_lora, self.lora_alpha

@@ -131,15 +131,20 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
 
     `prompt` is [(context_prompt, [(region_prompt, region_negative_prompt,
     box), ...])] with normalized (start_h, start_w, end_h, end_w) boxes. The
-    modules and adapters move to `device` and `dtype` in place."""
+    modules and adapters move to `device` and `dtype` in place. `quantize`
+    is EDLoRAPipeline's: the region override's projections run through
+    `layers.dense`, so they take the int8 route too, as in the JAX
+    package."""
 
     def __init__(self, unet, text_encoder, vae, tokenizer, device,
                  dtype: torch.dtype = COMPUTE_DTYPE, scheduler=None,
                  new_concept_cfg=None, concept_embedding=None,
                  keypose_adapter: Optional[T2IAdapter] = None,
-                 sketch_adapter: Optional[T2IAdapter] = None):
+                 sketch_adapter: Optional[T2IAdapter] = None,
+                 quantize: Optional[str] = None):
         super().__init__(unet, text_encoder, vae, tokenizer, device, dtype,
-                         scheduler, new_concept_cfg, concept_embedding)
+                         scheduler, new_concept_cfg, concept_embedding,
+                         quantize=quantize)
         self.keypose_adapter, self.sketch_adapter = (
             None if a is None else a.to(device=self.device, dtype=dtype).eval()
             for a in (keypose_adapter, sketch_adapter))

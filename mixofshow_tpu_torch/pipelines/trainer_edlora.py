@@ -21,6 +21,16 @@ Port of mixofshow_tpu/pipelines/trainer_edlora.py (reference
 Random draws (VAE eps, noise, noise offset, timesteps) come from an explicit
 `torch.Generator` on the trainer's device, or are handed in as a `draws`
 dict (NCHW), so that tests can feed in the JAX trainer's own draws.
+
+Data parallelism (a `mesh` from parallel.make_mesh, one process a device
+under torchrun): each rank gets its rows of the global batch and draws the
+global batch's random numbers from the identically seeded generator,
+keeping its rows, as JAX draws once and shards. The loss couples the rows
+of a batch (the regularizer's maxima and denominators), so those
+reductions are collectives over the ranks, and the ranks' gradients are
+summed before the optimizer step; the update equals one process's at the
+global batch.
+
 Batches use the JAX package's layout: images (B, H, W, 3) in [-1, 1], masks
 (B, h, w, 1), text_ids (B, 16, 77), concept_pos (B, 2) and
 concept_pos_mask (B, 2), numpy or tensors.
@@ -39,6 +49,9 @@ from mixofshow_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNet
 from mixofshow_tpu_torch.models.lora import (flatten_lora, init_lora_tree,
                                              map_lora, num_lora_leaves)
 from mixofshow_tpu_torch.models.vae import sample_latents
+from mixofshow_tpu_torch.ops.quant import dequantize
+from mixofshow_tpu_torch.parallel.mesh import (Mesh, all_max, all_sum,
+                                               reduce_grads, shard_batch)
 from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     all_concept_token_ids,
                                                     init_concepts)
@@ -130,7 +143,7 @@ def _nearest(x: torch.Tensor, hw) -> torch.Tensor:
 
 def attn_reg_loss(cross_probs, masks, concept_pos, concept_pos_mask,
                   attn_reg_weight: float, reg_full_identity: bool,
-                  latent_hw: Tuple[int, int]):
+                  latent_hw: Tuple[int, int], mesh: Optional[Mesh] = None):
     """Cross-attention regularizer (reference trainer_edlora.py:263-313).
 
     cross_probs: list of (place, layer_idx, probs (B, heads, Q, 77 or 2));
@@ -139,7 +152,13 @@ def attn_reg_loss(cross_probs, masks, concept_pos, concept_pos_mask,
     found. Maps are grouped by resolution, averaged over heads and layers,
     each concept map normalized by its global max; the penalty is the
     probability mass outside the mask (adjective always; subject either
-    full-mask MSE or outside mass)."""
+    full-mask MSE or outside mass).
+
+    With a `mesh` the batch is this rank's rows of the global batch: the
+    maxima and the denominators (mask counts, found subjects) are the
+    global batch's, through differentiable collectives, and the numerators
+    sum this rank's rows, so the ranks' results add up to the global
+    batch's loss."""
     h0, w0 = latent_hw
     b = masks.shape[0]
     groups: Dict[int, list] = {}
@@ -164,17 +183,17 @@ def attn_reg_loss(cross_probs, masks, concept_pos, concept_pos_mask,
         else:
             v_adj = v_subj = torch.ones(b, device=masks.device)
         map_adj, map_subj = sel[..., 0], sel[..., 1]
-        map_subj = map_subj / (map_subj.max() + 1e-12)
-        map_adj = map_adj / (map_adj.max() + 1e-12)
+        map_subj = map_subj / (all_max(map_subj.max(), mesh) + 1e-12)
+        map_adj = map_adj / (all_max(map_adj.max(), mesh) + 1e-12)
 
         gt = _nearest(mask_nchw, (h, w))[:, 0]
         outside = 1.0 - gt
-        n_out = outside.sum()
+        n_out = all_sum(outside.sum(), mesh)
         safe_out = torch.clamp(n_out, min=1.0)
         if reg_full_identity:
             per = ((map_subj - gt) ** 2).mean(dim=(1, 2))
-            loss_subj = (per * v_subj).sum() / torch.clamp(v_subj.sum(),
-                                                           min=1.0)
+            loss_subj = (per * v_subj).sum() / torch.clamp(
+                all_sum(v_subj.sum(), mesh), min=1.0)
         else:
             loss_subj = (map_subj * outside).sum() / safe_out
         loss_adj = (map_adj * outside).sum() / safe_out
@@ -189,7 +208,9 @@ class EDLoRATrainer:
     The modules are moved to `device`, cast to `compute_dtype` and frozen IN
     PLACE. The concept table and the LoRA trees are drawn from one numpy
     generator seeded `seed`, in the JAX package's order, so the same seed
-    gives the JAX trainer's `trainable_init`."""
+    gives the JAX trainer's `trainable_init`. With a `mesh` (several
+    processes under torchrun) a train step takes this rank's rows of the
+    global batch and its update is the global batch's."""
 
     def __init__(self, unet: UNet, text_encoder: CLIPTextModel,
                  vae: AutoencoderKL, tokenizer: Optional[CLIPTokenizer],
@@ -205,8 +226,10 @@ class EDLoRATrainer:
                  gradient_checkpoint: bool = False,
                  emb_norm_threshold: float = 0.55,
                  seed: int = 0,
-                 compute_dtype: torch.dtype = COMPUTE_DTYPE):
+                 compute_dtype: torch.dtype = COMPUTE_DTYPE,
+                 mesh: Optional[Mesh] = None):
         self.device = as_device(device)
+        self.mesh = mesh
         self.tokenizer = tokenizer or CLIPTokenizer()
         self.enable_edlora = enable_edlora
         self.noise_offset = noise_offset
@@ -228,6 +251,7 @@ class EDLoRATrainer:
         self.unet, self.text_encoder, self.vae = (
             m.to(device=self.device, dtype=compute_dtype).requires_grad_(
                 False).eval() for m in (unet, text_encoder, vae))
+        dequantize(self.unet)   # training runs the weights, never int8
 
         def lora(key, module, path_filter):
             cfg = self.finetune_cfg.get(key, {})
@@ -274,16 +298,20 @@ class EDLoRATrainer:
                    generator: Optional[torch.Generator] = None) -> Dict:
         """One step's random draws, in this order from `generator`: VAE
         eps and noise (B, 4, h, w), noise offset (B, 4, 1, 1), timesteps
-        (B,)."""
+        (B,). With a mesh, `b` is this rank's rows: the global batch's
+        draws are made and this rank's rows kept."""
         kw = dict(generator=generator, device=self.device,
                   dtype=torch.float32)
+        if self.mesh is not None:
+            b *= self.mesh.world
         shape = (b, self.vae.cfg.latent_channels, *latent_hw)
-        return {'vae_eps': torch.randn(shape, **kw),
-                'noise': torch.randn(shape, **kw),
-                'noise_offset': torch.randn((b, shape[1], 1, 1), **kw),
-                'timesteps': torch.randint(
-                    0, self.scheduler.num_train_timesteps, (b,),
-                    generator=generator, device=self.device)}
+        draws = {'vae_eps': torch.randn(shape, **kw),
+                 'noise': torch.randn(shape, **kw),
+                 'noise_offset': torch.randn((b, shape[1], 1, 1), **kw),
+                 'timesteps': torch.randint(
+                     0, self.scheduler.num_train_timesteps, (b,),
+                     generator=generator, device=self.device)}
+        return shard_batch(self.mesh, draws)
 
     def loss_fn(self, trainable: Dict, batch: Dict,
                 generator: Optional[torch.Generator] = None,
@@ -291,7 +319,15 @@ class EDLoRATrainer:
         """(loss, loss_dict): the masked diffusion MSE in fp32 plus the
         attention regularization; loss_dict['loss'] is the MSE alone and
         loss_dict['loss_attn_reg'] the regularizer, as in the JAX trainer.
-        Mirrors reference trainer_edlora.py:202-261."""
+        Mirrors reference trainer_edlora.py:202-261.
+
+        With a mesh, `batch` and `draws` are this rank's rows. The global
+        batch's loss is the sum over the ranks of what this returns: the
+        MSE's mean over this rank's rows divided by the world size (a mean
+        of equal shards) plus this rank's rows' share of the regularizer
+        (`attn_reg_loss` with the mesh). So the ranks' gradients are summed,
+        not averaged (`train_step`), and loss_dict holds the global
+        batch's values."""
         cdt = self.compute_dtype
         images = self._tensor(batch['images']).permute(0, 3, 1, 2).to(cdt)
         b, _, hh, ww = images.shape
@@ -339,7 +375,9 @@ class EDLoRATrainer:
         per = (se * loss_mask).sum(dim=(1, 2, 3)) / torch.clamp(
             loss_mask.sum(dim=(1, 2, 3)), min=1.0)
         loss = per.mean()
-        loss_dict = {'loss': loss.detach()}
+        if self.mesh is not None:
+            loss = loss / self.mesh.world
+        loss_dict = {'loss': all_sum(loss.detach(), self.mesh)}
         if want_probs:
             pos_mask = batch.get('concept_pos_mask')
             reg = attn_reg_loss(
@@ -347,9 +385,9 @@ class EDLoRATrainer:
                 None if pos_mask is None else
                 self._tensor(pos_mask, torch.float32),
                 self.attn_reg_weight, self.reg_full_identity,
-                tuple(pred.shape[-2:]))
+                tuple(pred.shape[-2:]), self.mesh)
             loss = loss + reg
-            loss_dict['loss_attn_reg'] = reg.detach()
+            loss_dict['loss_attn_reg'] = all_sum(reg.detach(), self.mesh)
         return loss, loss_dict
 
     # ----------------------------------------------------------- train step
@@ -357,9 +395,11 @@ class EDLoRATrainer:
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None) -> Dict:
         """One micro-step: backward of loss / grad_accum; on every
-        grad_accum-th micro-step the optimizer update, the lr schedule
-        step and the freeze. Updates `state` in place and returns the loss
-        dict (device tensors; reading them syncs)."""
+        grad_accum-th micro-step the gradients summed over the ranks (with
+        a mesh), the optimizer update, the lr schedule step and the freeze.
+        Updates `state` in place and returns the loss dict (device tensors;
+        reading them syncs). The freeze reads the updated embedding, which
+        every rank holds alike, so the ranks agree on it."""
         loss, loss_dict = self.loss_fn(state.trainable, batch, generator,
                                        draws)
         (loss / state.grad_accum).backward()
@@ -367,6 +407,8 @@ class EDLoRATrainer:
         emb = state.trainable['concept_embedding']
         if state.step % state.grad_accum == 0:
             before = emb.detach().clone()
+            reduce_grads((p for group in state.optimizer.param_groups
+                          for p in group['params']), self.mesh)
             state.optimizer.step()
             state.lr_schedule.step()
             state.optimizer.zero_grad(set_to_none=True)

@@ -6,16 +6,23 @@ with its per-index latent, write one PNG a sample and compose a labelled
 grid. The sweep is pipelined one deep over `EDLoRAPipeline.submit`: batch
 i+1 is queued on the device before batch i is read back and written, so
 tokenization, the copy to the host and the PNG encode overlap device work.
-One device, so no batch is padded for a mesh.
+
+With a mesh (several processes under torchrun) the ranks take the loader's
+batches in turn, rank r the batches r, r + world, ...: every batch is the
+one a single process samples, with its latents (seeded by the sample's
+index), so the files are those of a single process. Rank 0 composes the
+grid once every rank has written. (The JAX package pads each batch to a
+multiple of the mesh's data axis instead; the files written are the same.)
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from mixofshow_tpu_torch.data.loader import DataLoader, default_collate
+from mixofshow_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_object
 from mixofshow_tpu_torch.pipelines.pipeline_edlora import EDLoRAPipeline
 from mixofshow_tpu_torch.utils.options import NEGATIVE_PROMPT
 from mixofshow_tpu_torch.utils.vis import (array_to_pil, compose_visualize,
@@ -23,10 +30,12 @@ from mixofshow_tpu_torch.utils.vis import (array_to_pil, compose_visualize,
 
 
 def visual_validation(pipe: EDLoRAPipeline, val_dataset, suffix: str,
-                      opt: Dict) -> str:
+                      opt: Dict, mesh: Optional[Mesh] = None) -> str:
     """Sample every (prompt, index) pair of `val_dataset` into
-    `<path.visualization>/<suffix>/`; returns the composed grid's path
-    when `val.compose_visualize` is set, else the directory."""
+    `<path.visualization>/<suffix>/` (this rank's batches, with a mesh);
+    returns the composed grid's path when `val.compose_visualize` is set,
+    else the directory."""
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     sample_cfg = opt['val'].get('sample', {})
     steps = sample_cfg.get('num_inference_steps', 50)
     guidance = sample_cfg.get('guidance_scale', 7.5)
@@ -43,7 +52,9 @@ def visual_validation(pipe: EDLoRAPipeline, val_dataset, suffix: str,
             pil_imwrite(array_to_pil(img), os.path.join(vis_dir, name))
 
     pending = None
-    for batch in loader:
+    for i, batch in enumerate(loader):
+        if i % world != rank:
+            continue
         latents = np.asarray(batch['latents'])
         prompts = list(batch['prompts'])
         handle = pipe.submit(prompts,
@@ -59,6 +70,8 @@ def visual_validation(pipe: EDLoRAPipeline, val_dataset, suffix: str,
     if pending is not None:
         drain(*pending)
 
-    if opt['val'].get('compose_visualize'):
-        return compose_visualize(vis_dir)
-    return vis_dir
+    if not opt['val'].get('compose_visualize'):
+        return vis_dir
+    barrier(mesh)   # every rank's PNGs are written
+    return broadcast_object(compose_visualize(vis_dir) if rank == 0 else None,
+                            mesh)

@@ -2,6 +2,7 @@
 
     python -m mixofshow_tpu_torch.train_edlora -opt options/train/....yml \
         [--device cuda] [--resume <experiment>/models/train_state-<tag>.pt]
+    torchrun --nproc_per_node N -m mixofshow_tpu_torch.train_edlora ...
 
 Mirrors the JAX package's root `train_edlora.py` (reference
 `train_edlora.py -opt ...`): build the trainer from the YAML `models:`
@@ -25,8 +26,14 @@ package, the data iterator and the noise generator restart from the seed:
 a resumed run sees the batches and draws that the first steps of a fresh
 run see, not those the interrupted run would have seen next.
 
-Training runs on one device; data parallelism across several (WORLD_SIZE
-> 1) is not in the port yet and raises.
+Under torchrun each of the N processes trains on one device (`cuda:
+LOCAL_RANK`, NCCL; gloo with `--device cpu`), as the JAX CLI shards over
+its mesh: the global batch is `batch_size_per_gpu` x N, `total_iter`, the
+log and the schedule count it, every rank loads the whole shuffled global
+batch and keeps its rows (parallel.shard_batch), the trainer reduces the
+loss and the gradients over the ranks, and rank 0 alone logs and writes the
+delta and the train state. Validation sweeps split their batches over the
+ranks. `--resume` loads on every rank.
 
 `main(argv, on_step=None, report=None)` runs in-process and returns
 (trainer, state, last loss dict). `on_step(global_step, loss_dict)` is
@@ -48,6 +55,9 @@ from mixofshow_tpu_torch.convert.delta_io import save_edlora_delta
 from mixofshow_tpu_torch.data import (DataLoader, LoraDataset, PromptDataset,
                                       TrainBatcher, default_collate)
 from mixofshow_tpu_torch.models.lora import map_lora
+from mixofshow_tpu_torch.parallel.mesh import (barrier, close_mesh,
+                                               make_mesh, replicate_,
+                                               shard_batch)
 from mixofshow_tpu_torch.pipelines.pipeline_edlora import EDLoRAPipeline
 from mixofshow_tpu_torch.pipelines.trainer_edlora import (EDLoRATrainer,
                                                           make_optimizer)
@@ -64,7 +74,8 @@ from mixofshow_tpu_torch.utils.options import (dict2str, load_options,
 from mixofshow_tpu_torch.zoo import load_models
 
 
-def build_trainer(opt, bundle, device, compute_dtype) -> EDLoRATrainer:
+def build_trainer(opt, bundle, device, compute_dtype,
+                  mesh) -> EDLoRATrainer:
     mcfg = opt['models']
     return EDLoRATrainer(
         bundle.unet, bundle.text_encoder, bundle.vae, bundle.tokenizer,
@@ -81,30 +92,26 @@ def build_trainer(opt, bundle, device, compute_dtype) -> EDLoRATrainer:
         emb_norm_threshold=float(opt['train'].get('emb_norm_threshold',
                                                   0.55)),
         seed=opt.get('manual_seed', 0),
-        compute_dtype=compute_dtype)
-
-
-def refuse_data_parallel():
-    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
-        raise NotImplementedError(
-            'data parallelism across several processes is not in the port '
-            'yet (ROADMAP A17); run on one device')
+        compute_dtype=compute_dtype, mesh=mesh)
 
 
 def save_and_validation(opt, trainer, state, val_dataset, tag,
                         logger) -> Dict:
-    """Save the delta and the train state; with `val.val_during_save`,
-    sample the validation set at each alpha. Returns the seconds of each
-    part."""
+    """Save the delta and the train state (rank 0); with
+    `val.val_during_save`, sample the validation set at each alpha (the
+    ranks' share each). Returns the seconds of each part."""
     t0 = time.perf_counter()
+    mesh = trainer.mesh
     lora_type = 'edlora' if opt['models'].get('enable_edlora', True) \
         else 'lora'
     models = opt['path']['models']
     path = os.path.join(models, f'{lora_type}_model-{tag}.pth')
     delta = trainer.delta_state_dict(state)
-    save_edlora_delta(path, delta)
-    logger.info(f'Save state to {path}')
-    save_train_state(os.path.join(models, f'train_state-{tag}.pt'), state)
+    if mesh.rank == 0:
+        save_edlora_delta(path, delta)
+        logger.info(f'Save state to {path}')
+        save_train_state(os.path.join(models, f'train_state-{tag}.pt'),
+                         state)
     t1 = time.perf_counter()
     if opt['val'].get('val_during_save'):
         table = torch.cat([delta['new_concept_embedding'][name]
@@ -121,7 +128,8 @@ def save_and_validation(opt, trainer, state, val_dataset, tag,
                 concept_embedding=table, unet_lora=unet_lora,
                 text_lora=text_lora, lora_alpha=float(alpha))
             visual_validation(pipe, val_dataset,
-                              f'Iters-{tag}_Alpha-{alpha}', opt)
+                              f'Iters-{tag}_Alpha-{alpha}', opt, mesh)
+    barrier(mesh)
     return {'tag': tag, 'save_s': t1 - t0,
             'validation_s': time.perf_counter() - t1}
 
@@ -148,27 +156,38 @@ def main(argv: Optional[Sequence[str]] = None,
                         help='train_state-<tag>.pt file to resume from')
     args = parser.parse_args(argv)
     opt = load_options(args.opt)
-    refuse_data_parallel()
+    mesh = make_mesh(args.device)
+    try:
+        return _train(opt, args, mesh, on_step, report)
+    finally:
+        close_mesh(mesh)
+
+
+def _train(opt, args, mesh, on_step, report):
     seed = opt.get('manual_seed', 0)
     if opt.get('manual_seed') is not None:
         set_manual_seed(seed)
 
-    logger = set_path_logger(opt, args.opt, is_train=True)
+    logger = set_path_logger(opt, args.opt, is_train=True, mesh=mesh)
     logger.info(dict2str(opt))
-    device = torch.device(args.device)
+    device = mesh.device
     compute_dtype = resolve_compute_dtype(opt)
-    logger.info(f'device: {device}, compute dtype: {compute_dtype}')
+    logger.info(f'device: {device}, compute dtype: {compute_dtype}, data '
+                f'parallel: {mesh.world} process(es), process group '
+                f'{mesh.backend}')
     # fp32 draws (the concept rows start from the fp32 table); the trainer
     # casts the modules to the compute dtype in place
     bundle = load_models(opt['models'].get('pretrained_path'), device,
                          seed=seed)
-    trainer = build_trainer(opt, bundle, device, compute_dtype)
+    trainer = build_trainer(opt, bundle, device, compute_dtype, mesh)
 
     trainset_cfg = opt['datasets']['train']
     train_dataset = LoraDataset(trainset_cfg)
     batcher = TrainBatcher(trainer.tokenizer, trainer.new_concept_cfg,
                            enable_edlora=trainer.enable_edlora)
-    batch_size = trainset_cfg['batch_size_per_gpu']
+    # the global batch; every rank loads all of it, because the transforms
+    # draw from Python's `random` in load order, and keeps its rows
+    batch_size = trainset_cfg['batch_size_per_gpu'] * mesh.world
     train_loader = DataLoader(
         train_dataset, batch_size=batch_size, shuffle=True, drop_last=True,
         seed=seed, collate_fn=lambda items: batcher(default_collate(items)))
@@ -195,6 +214,9 @@ def main(argv: Optional[Sequence[str]] = None,
         logger.info(f'resumed from {resume_path} at step {state.step}')
         if report is not None:
             report['resumed'] = train_state_dict(state)
+    # every rank built the same state from the seed; make it rank 0's
+    replicate_((p for group in state.optimizer.param_groups
+                for p in group['params']), mesh)
     msg_logger = MessageLogger(opt, 1)
     base_lrs = [opt_cfg.hparams[g][0] for g in ('emb', 'text', 'unet')]
     print_freq = opt.get('logger', {}).get('print_freq', 10)
@@ -211,7 +233,8 @@ def main(argv: Optional[Sequence[str]] = None,
         on_step(global_step, loss_dict)
     while global_step < total_iter:
         for _ in range(accum):
-            loss_dict = trainer.train_step(state, next(yielder), gen)
+            loss_dict = trainer.train_step(
+                state, shard_batch(mesh, next(yielder)), gen)
         global_step += 1
         if on_step is not None:
             on_step(global_step, loss_dict)

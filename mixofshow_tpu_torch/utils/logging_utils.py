@@ -3,8 +3,10 @@
 Port of mixofshow_tpu/utils/logging_utils.py (reference
 mixofshow/utils/util.py:25-229): archive-on-collision experiment dirs,
 config snapshotting, formatted iteration lines with lr/ETA/losses. Training
-runs on one device, so `reduce_loss_dict` only turns the step's loss
-tensors into floats (the read syncs with the device).
+loss dicts hold the global batch's values already (the trainer reduces
+them over the ranks), so `reduce_loss_dict` only turns them into floats
+(the read syncs with the device). Under data parallelism rank 0 alone
+makes the directories and logs (`set_path_logger` with a mesh).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import shutil
 import sys
 import time
 from typing import Dict, Optional
+
+from mixofshow_tpu_torch.parallel.mesh import Mesh, broadcast_object
 
 initialized_loggers = set()
 LOG_FORMAT = '%(asctime)s %(levelname)s: %(message)s'
@@ -64,11 +68,23 @@ def set_logger(name: str, log_file: Optional[str] = None,
 
 
 def set_path_logger(opt: Dict, opt_path: str, is_train: bool = True,
-                    logger_name: str = 'mixofshow_tpu_torch'
-                    ) -> logging.Logger:
+                    logger_name: str = 'mixofshow_tpu_torch',
+                    mesh: Optional[Mesh] = None) -> logging.Logger:
     """Create the experiment dir layout + root logger (util.py:70-101):
     `path.experiments_root` when the options set it, else
-    experiments/<name> (results/<name> when not training)."""
+    experiments/<name> (results/<name> when not training). With a mesh,
+    rank 0 does that and the other ranks take its `opt['path']` and a
+    logger that prints warnings only."""
+    if mesh is not None and mesh.rank != 0:
+        opt['path'] = broadcast_object(None, mesh)
+        return set_logger(logger_name, level=logging.WARNING)
+    logger = _set_path_logger(opt, opt_path, is_train, logger_name)
+    if mesh is not None:
+        broadcast_object(opt['path'], mesh)
+    return logger
+
+
+def _set_path_logger(opt, opt_path, is_train, logger_name):
     opt['path'] = dict(opt.get('path') or {})
     exp_root = opt['path'].get('experiments_root') or os.path.join(
         'experiments' if is_train else 'results', opt['name'])
@@ -116,5 +132,5 @@ class MessageLogger:
 
 def reduce_loss_dict(loss_dict: Dict) -> Dict:
     """The loss dict as floats (reference util.py:203-229 averages across
-    processes; one process here)."""
+    processes; the port's trainer returns the global batch's values)."""
     return {k: float(v) for k, v in loss_dict.items()}

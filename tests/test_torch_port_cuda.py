@@ -707,3 +707,71 @@ def test_attn_fwd_at_the_wide_canvas(dev):
     assert twin_err(out, ref) <= ATTN_BF16_REL
     for bad in k1_faults(q, k, v, 8192):
         assert twin_err(bad, ref) > ATTN_BF16_REL
+
+
+# ------------------------------------------------ the int8 serving modes
+def _int8_inputs(dev, m, k, n, seed=0):
+    from torch import nn
+    from mixofshow_tpu_torch.ops import quant
+    x = _randn(dev, m, k, dtype=torch.bfloat16, seed=seed)
+    lin = nn.Linear(k, n, bias=False, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(_randn(dev, n, k, dtype=torch.bfloat16,
+                                seed=seed + 1))
+    return x, quant.quantize_dense(lin)
+
+
+@pytest.mark.parametrize('m,k,n', [(4 * 4096, 320, 2560), (308, 768, 320),
+                                   (1, 320, 320), (5, 20, 12), (16, 64, 40)])
+def test_int8_matmul_card_matches_cpu(dev, m, k, n):
+    """The card's int8 activations, scales and int32 accumulators equal the
+    CPU's bitwise (row counts <= 16 and K, N off a multiple of 8 padded
+    for torch._int_mm); the rescaled outputs within bf16 rounding."""
+    from mixofshow_tpu_torch.ops import quant
+    x, lin = _int8_inputs(dev, m, k, n)
+    xq, sx = quant.quantize_activation(x, -1)
+    cxq, csx = quant.quantize_activation(x.cpu(), -1)
+    assert torch.equal(xq.cpu(), cxq) and torch.equal(sx.cpu(), csx)
+    rows = slice(0, min(m, 256))
+    acc = quant.int_mm(xq[rows], lin.wq)
+    assert acc.shape == (min(m, 256), n)
+    assert torch.equal(acc.cpu(), quant.int_mm(cxq[rows], lin.wq.cpu()))
+    out = quant.int8_matmul(x[rows], lin.wq, lin.wscale)
+    ref = quant.int8_matmul(x[rows].cpu(), lin.wq.cpu(), lin.wscale.cpu())
+    assert out.dtype == torch.bfloat16
+    assert (out.float().cpu() - ref.float()).abs().max() <= \
+        2 ** -7 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize('shape', [(2, 320, 128, 256), (1, 640, 64, 128)])
+def test_int8_conv_at_the_2x_canvas(dev, shape):
+    """The 2x canvas's (1024x2048) largest resnet convs, CFG batch of one
+    image: the im2col product's accumulators against an exact float64
+    convolution of the same int8 values."""
+    from torch import nn
+    from mixofshow_tpu_torch.ops import quant
+    b, c, h, w = shape
+    x = _randn(dev, *shape, dtype=torch.bfloat16)
+    conv = nn.Conv2d(c, c, 3, padding=1, bias=False, device=dev,
+                     dtype=torch.bfloat16)
+    quant.quantize_conv(conv)
+    xq, _ = quant.quantize_activation(x, (1, 2, 3))
+    acc = quant.int_conv(xq, conv.wq, 1, 1)
+    exact = torch.nn.functional.conv2d(xq.double(), conv.wq.double(),
+                                       padding=1)
+    assert acc.dtype == torch.int32 and torch.equal(acc.double(), exact)
+    out = quant.int8_conv(x, conv.wq, conv.wscale, 1, 1)
+    ref = torch.nn.functional.conv2d(x, conv.weight, padding=1)
+    assert ((out.float() - ref.float()).norm() / ref.float().norm()) < 2e-2
+
+
+@pytest.mark.parametrize('b,s,h,d', [(4, 4096, 8, 40), (4, 1024, 8, 80)])
+def test_flash_fwd_at_the_int8_requests_shapes(dev, b, s, h, d):
+    """K4 at the shapes a quantized attn1 gives it in inference."""
+    q, k, v = (_randn(dev, b, s, h, d, dtype=torch.bfloat16, seed=i)
+               for i in (4, 5, 6))
+    with torch.inference_mode():
+        o, lse = fl.flash_fwd(q, k, v)
+        ro, rlse = fl.flash_fwd_plain(q, k, v)
+    assert twin_err(o, ro) <= FLASH_BF16_REL
+    assert (lse - rlse).abs().max().item() <= 1e-3

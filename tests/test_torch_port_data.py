@@ -6,6 +6,7 @@ numpy seeds they must give identical outputs (exact equality). The CLI
 trains the tiny config for 2 steps at 64x64 and its reference-format delta
 loads with the JAX package's `convert_edlora_delta`.
 """
+import copy
 import json
 import os
 import random
@@ -235,12 +236,112 @@ def test_cli_trains_and_saves_a_reference_delta(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Data parallelism (WORLD_SIZE > 1) is the one refusal left, in both
-    CLIs; --resume and val_during_save are ported
-    (tests/test_torch_port_validation.py)."""
+    """Both CLIs run on the card by default and refuse `--device cuda`
+    when no card is visible, rather than running on the CPU; data
+    parallelism is ported (test_cli_data_parallel_two_ranks)."""
     yml = _tiny_yml(tmp_path)
-    monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(NotImplementedError, match='data parallelism'):
-        train_edlora.main(['-opt', yml, '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='data parallelism'):
-        test_edlora.main(['-opt', yml, '--device', 'cpu'])
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for cli in (train_edlora, test_edlora):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            cli.main(['-opt', yml, '--device', 'cuda'])
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            cli.main(['-opt', yml])
+
+
+def _sweep_yml(tmp_path, name, lora_path, prompts):
+    path = tmp_path / f'{name}.yml'
+    path.write_text(yaml.safe_dump({
+        'name': name, 'manual_seed': 0, 'mixed_precision': 'no',
+        'datasets': {'val_vis': {
+            'name': 'PromptDataset', 'prompts': prompts,
+            'num_samples_per_prompt': 1, 'latent_size': [4, 8, 8],
+            'replace_mapping': {'<TOK>': '<c1> <c2>'},
+            'batch_size_per_gpu': 1}},
+        'models': {'pretrained_path': 'random:tiny', 'enable_edlora': True,
+                   'new_concept_token': '<c1>+<c2>'},
+        'path': {'lora_path': str(lora_path),
+                 'experiments_root': str(tmp_path / name)},
+        'val': {'compose_visualize': True, 'alpha_list': [0.5, 1.0],
+                'sample': {'num_inference_steps': 2,
+                           'guidance_scale': 7.5}}}))
+    return str(path)
+
+
+def _files(root):
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob('*')) if p.suffix in ('.png', '.jpg')}
+
+
+def test_cli_data_parallel_two_ranks(tmp_path):
+    """torchrun's two ranks (gloo, --device cpu) against one process:
+    train_edlora at batch 1 a rank (global batch 2) with validation at
+    every save gives the delta of one process at batch 2 within 1e-5
+    (tests/test_trainer.py's bound), rank 0 alone writing the deltas and
+    train states; the validation sweeps and test_edlora (both ranks' share
+    of 3 prompts x 2 alphas, on one process's delta) write the file names,
+    and for test_edlora the bytes, of one process."""
+    import torch_port_ddp as ddp
+    prompts = ['a photo of <TOK>', '<TOK> on a beach', '<TOK> in a park']
+    (tmp_path / 'prompts.txt').write_text('\n'.join(prompts) + '\n')
+    base = yaml.safe_load(open(_tiny_yml(tmp_path)))
+    base['datasets']['train']['dataset_enlarge_ratio'] = 2
+    base['datasets']['val_vis'] = {
+        'name': 'PromptDataset', 'prompts': str(tmp_path / 'prompts.txt'),
+        'num_samples_per_prompt': 1, 'latent_size': [4, 8, 8],
+        'replace_mapping': {'<TOK>': '<c1> <c2>'}, 'batch_size_per_gpu': 1}
+    base['val'] = {'val_during_save': True, 'alpha_list': [1.0],
+                   'compose_visualize': True,
+                   'sample': {'num_inference_steps': 2,
+                              'guidance_scale': 7.5}}
+    ymls = {}
+    for world in (1, 2):
+        opt = copy.deepcopy(base)
+        opt['datasets']['train']['batch_size_per_gpu'] = 2 // world
+        opt['path'] = {'experiments_root': str(tmp_path / f'train{world}')}
+        ymls[world] = tmp_path / f'train{world}.yml'
+        ymls[world].write_text(yaml.safe_dump(opt))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # the ranks' one thread: the same sums
+    try:
+        _, one, _ = train_edlora.main(['-opt', str(ymls[1]), '--device',
+                                       'cpu'])
+        delta = tmp_path / 'train1' / 'models' / 'edlora_model-latest.pth'
+        ctx = ddp.spawn(2, ddp.cli_rank,
+                        ['-opt', str(ymls[2]), '--device', 'cpu'],
+                        ['-opt', _sweep_yml(tmp_path, 'sweep2', delta,
+                                            str(tmp_path / 'prompts.txt')),
+                         '--device', 'cpu'], str(tmp_path),
+                        ddp.free_port())
+        test_edlora.main(['-opt', _sweep_yml(
+            tmp_path, 'sweep1', delta, str(tmp_path / 'prompts.txt')),
+            '--device', 'cpu'])
+        ddp.join(ctx)
+    finally:
+        torch.set_num_threads(threads)
+
+    ranks = [torch.load(tmp_path / f'cli{r}.pt', weights_only=True)
+             for r in range(2)]
+    assert ddp.max_diff(ranks[0]['final'], ranks[1]['final']) == 0.0
+    tags = ('1', '2', 'latest')
+    assert sorted(ranks[0]['saved']) == sorted(
+        [f'edlora_model-{t}.pth' for t in tags] +
+        [f'train_state-{t}.pt' for t in tags])
+    assert ranks[1]['saved'] == []          # rank 1 writes none
+    assert ddp.max_diff(ranks[0]['final'], ddp.trainable_arrays(one)) <= 1e-5
+    for world in (1, 2):
+        models = tmp_path / f'train{world}' / 'models'
+        assert sorted(os.listdir(models)) == sorted(
+            [f'edlora_model-{t}.pth' for t in tags] +
+            [f'train_state-{t}.pt' for t in tags])
+    ours = convert_edlora_delta(load_edlora_delta(
+        str(tmp_path / 'train2' / 'models' / 'edlora_model-latest.pth')))
+    np.testing.assert_array_equal(
+        np.asarray(ours['new_concept_embedding']['<c1>']),
+        ranks[0]['final']['emb'][:16].numpy())
+    train_files = [set(_files(tmp_path / f'train{w}' / 'visualization'))
+                   for w in (1, 2)]
+    assert train_files[0] == train_files[1] and len(train_files[0]) == 12
+    sweeps = [_files(tmp_path / f'sweep{w}' / 'visualization')
+              for w in (1, 2)]
+    assert len(sweeps[0]) == 8 and sweeps[0] == sweeps[1]
