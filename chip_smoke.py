@@ -131,7 +131,8 @@ line when any fails, or when no CUDA device is visible):
                 `python -m torch.distributed.run --standalone
                 --nproc_per_node 1 -m mixofshow_tpu_torch.train_edlora
                 --device cuda` in a subprocess (one card hosts one NCCL
-                rank; world 2 is held on the CPU by the tests): the process
+                rank; tools/port_ddp_cards.py runs worlds 2 and 4 on as
+                many cards): the process
                 group is NCCL, the train states and deltas at every save
                 equal phase 7's bitwise, the logged losses phase 7's;
   8. fusion   — gradient fusion at SD1.5 width through the port's CLI

@@ -33,41 +33,14 @@ from mixofshow_tpu_torch.convert import load_jax_params, lora_from_jax
 from mixofshow_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNet
 from mixofshow_tpu_torch.models.lora import flatten_lora
 from mixofshow_tpu_torch.parallel import Mesh, shard_batch
-from mixofshow_tpu_torch.pipelines.concepts import bind_concept_prompt
 from test_torch_port_train import _jax_draws
 
 U, C, V = zoo.tiny_configs()
 ATOL = 1e-5
-PROMPTS = ['a photo of <g1> <g2> at the beach', 'a <g1> <g2> on grass',
-           'a photo of <g1> in a garden', '<g1> <g2> next to a cat']
 # between the embedding's mean row norm after the 1st (0.11506) and the
 # 2nd (0.11536) update of the 'plain' run: the sticky freeze sets after
 # the 2nd and holds the embedding at the 3rd
 THRESHOLD = 0.1152
-
-
-def _batch(trainer, seed, img=64):
-    """A global batch of 4 in the JAX layout: its own mask a sample, the
-    third prompt without the subject token."""
-    rng = np.random.default_rng(seed)
-    b = len(PROMPTS)
-    ids = trainer.tokenizer(bind_concept_prompt(
-        PROMPTS, trainer.new_concept_cfg)).reshape(b, 16, 77)
-    pos = np.zeros((b, 2), np.int32)
-    found = np.zeros((b, 2), np.float32)
-    for i in range(b):
-        hits = [j for j, t in enumerate(ids[i, 0])
-                if t in trainer.concept_token_ids][:2]
-        pos[i, :len(hits)] = hits
-        found[i, :len(hits)] = 1.0
-    lat = img // 8
-    masks = np.zeros((b, lat, lat, 1), np.float32)
-    for i in range(b):
-        masks[i, i:lat - i // 2, 1:lat - 2 * i] = 1.0
-    return {'images': rng.normal(size=(b, img, img, 3)).astype(np.float32),
-            'text_ids': ids.astype(np.int32), 'masks': masks,
-            'img_masks': np.ones((b, img, img, 1), np.float32),
-            'concept_pos': pos, 'concept_pos_mask': found}
 
 
 def _jax_grads(params, batch, key):
@@ -104,7 +77,7 @@ def runs(tmp_path_factory):
                 'vae': load_jax_params(AutoencoderKL(V, 'cpu'),
                                        params['vae']).state_dict()}, mods)
     probe = ddp.build_trainer(str(mods), None)
-    batches = [_batch(probe, s) for s in range(4)]
+    batches = [ddp.global_batch(probe, s) for s in range(4)]
     draws = [_jax_draws(jax.random.PRNGKey(i), 4, 8) for i in range(3)]
     scenarios = [
         {'name': 'plain', 'batches': batches[:3], 'draws': draws,

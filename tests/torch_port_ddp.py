@@ -15,6 +15,7 @@ import os
 import socket
 import time
 
+import numpy as np
 import torch
 import torch.multiprocessing as mp
 
@@ -61,6 +62,33 @@ TRAINER_KW = dict(new_concept_token='<g1>+<g2>',
                   initializer_token='<rand-0.013>+<rand-0.017>',
                   finetune_cfg=FINETUNE, attn_reg_weight=0.01,
                   reg_full_identity=False, noise_offset=0.01)
+PROMPTS = ['a photo of <g1> <g2> at the beach', 'a <g1> <g2> on grass',
+           'a photo of <g1> in a garden', '<g1> <g2> next to a cat']
+
+
+def global_batch(trainer, seed, img=64):
+    """A global batch of 4 in the JAX layout: its own mask a sample, the
+    third prompt without the subject token."""
+    from mixofshow_tpu_torch.pipelines.concepts import bind_concept_prompt
+    rng = np.random.default_rng(seed)
+    b = len(PROMPTS)
+    ids = trainer.tokenizer(bind_concept_prompt(
+        PROMPTS, trainer.new_concept_cfg)).reshape(b, 16, 77)
+    pos = np.zeros((b, 2), np.int32)
+    found = np.zeros((b, 2), np.float32)
+    for i in range(b):
+        hits = [j for j, t in enumerate(ids[i, 0])
+                if t in trainer.concept_token_ids][:2]
+        pos[i, :len(hits)] = hits
+        found[i, :len(hits)] = 1.0
+    lat = img // 8
+    masks = np.zeros((b, lat, lat, 1), np.float32)
+    for i in range(b):
+        masks[i, i:lat - i // 2, 1:lat - 2 * i] = 1.0
+    return {'images': rng.normal(size=(b, img, img, 3)).astype(np.float32),
+            'text_ids': ids.astype(np.int32), 'masks': masks,
+            'img_masks': np.ones((b, img, img, 1), np.float32),
+            'concept_pos': pos, 'concept_pos_mask': found}
 
 
 def build_trainer(modules_path, mesh, **kw):
@@ -108,8 +136,8 @@ def run_steps(trainer, batches, accum=1, draws=None, seed=0):
     (parallel.shard_batch); `draws[i]`, when given, are micro-step i's
     global draws, else the trainer draws from a generator seeded `seed`.
     Returns {'losses': per micro-step loss dicts, 'frozen', 'norms',
-    'grads': the summed gradients at the first update, 'final': the
-    trainables}."""
+    'grads': the summed gradients at the first update, 'n_grads': how many
+    leaves had a gradient at each update, 'final': the trainables}."""
     from mixofshow_tpu_torch.parallel import shard_batch
     from mixofshow_tpu_torch.pipelines.trainer_edlora import make_optimizer
     mesh = trainer.mesh
@@ -128,6 +156,7 @@ def run_steps(trainer, batches, accum=1, draws=None, seed=0):
         rec['frozen'].append(bool(state.emb_frozen))
         rec['norms'].append(float(ld['Norm_mean']))
     rec['grads'] = captured[0]
+    rec['n_grads'] = [len(c) for c in captured]
     rec['final'] = trainable_arrays(state)
     return rec
 
@@ -192,5 +221,6 @@ def max_diff(a, b) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
-__all__ = ['FINETUNE', 'TRAINER_KW', 'build_trainer', 'cli_rank', 'free_port',
-           'join', 'max_diff', 'run_steps', 'spawn', 'train_rank']
+__all__ = ['FINETUNE', 'PROMPTS', 'TRAINER_KW', 'build_trainer', 'cli_rank',
+           'free_port', 'global_batch', 'join', 'max_diff', 'run_steps',
+           'spawn', 'train_rank']
