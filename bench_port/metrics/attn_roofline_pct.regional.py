@@ -1,0 +1,3 @@
+from bench_port.readers import kernel_roofline
+
+read = kernel_roofline('sample_attention')

@@ -1,0 +1,1 @@
+from bench_port.readers import mfu as read  # noqa: F401
