@@ -21,6 +21,7 @@ import numpy as np
 
 from mixofshow_tpu_torch.pipelines.concepts import (
     NUM_CROSS_ATTENTION_LAYERS, all_concept_token_ids, bind_concept_prompt)
+from mixofshow_tpu_torch.utils.profiling import span
 
 
 class DataLoader:
@@ -68,7 +69,8 @@ class DataLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with span('data.wait'):
+                item = q.get()
             if item is sentinel:
                 break
             if isinstance(item, BaseException):

@@ -52,6 +52,7 @@ from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     bind_concept_prompt)
 from mixofshow_tpu_torch.text.tokenizer import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import COMPUTE_DTYPE, as_device
+from mixofshow_tpu_torch.utils.profiling import last_request, span
 
 OUTPUT_TYPES = ('pil', 'uint8', 'np', 'latent')
 
@@ -136,24 +137,25 @@ class EDLoRAPipeline:
         negative prompt is encoded once and broadcast over the 16 layers."""
         if self.new_concept_cfg is None:
             raise ValueError('set_new_concept_cfg first')
-        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        b = len(prompts)
-        emb = self._encode_texts(bind_concept_prompt(prompts,
-                                                     self.new_concept_cfg))
-        emb = emb.reshape(b, NUM_CROSS_ATTENTION_LAYERS, *emb.shape[1:])
-        if not do_cfg:
-            return emb
-        if negative_prompt is None:
-            neg = [''] * b
-        elif isinstance(negative_prompt, str):
-            neg = [negative_prompt] * b
-        else:
-            neg = list(negative_prompt)
-            if len(neg) != b:
-                raise ValueError('negative_prompt batch mismatch')
-        nemb = self._encode_texts(neg)[:, None].expand(
-            b, NUM_CROSS_ATTENTION_LAYERS, *emb.shape[2:])
-        return torch.cat([nemb, emb])
+        with span('encode', self.device):
+            prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+            b = len(prompts)
+            emb = self._encode_texts(bind_concept_prompt(prompts,
+                                                         self.new_concept_cfg))
+            emb = emb.reshape(b, NUM_CROSS_ATTENTION_LAYERS, *emb.shape[1:])
+            if not do_cfg:
+                return emb
+            if negative_prompt is None:
+                neg = [''] * b
+            elif isinstance(negative_prompt, str):
+                neg = [negative_prompt] * b
+            else:
+                neg = list(negative_prompt)
+                if len(neg) != b:
+                    raise ValueError('negative_prompt batch mismatch')
+            nemb = self._encode_texts(neg)[:, None].expand(
+                b, NUM_CROSS_ATTENTION_LAYERS, *emb.shape[2:])
+            return torch.cat([nemb, emb])
 
     # ------------------------------------------------------------ sampling
     def _initial_latents(self, latents, b, h, w, seed):
@@ -178,39 +180,45 @@ class EDLoRAPipeline:
                 f'this pipeline serves quantize={self.quantize!r} but its '
                 f'UNet was set to {self.unet.quantize_mode!r} by a pipeline '
                 f'built after it')
-        solver = self.scheduler
-        coeffs = solver.step_coeffs(num_inference_steps)
-        lora, alpha = self.unet_lora, self.lora_alpha
-        layers = frozenset(idx for _, idx in capture)
-        step_callback = getattr(self.controller, 'step_callback', None)
-        sample, m_prev = lat, torch.zeros_like(lat)
-        psum = {}
-        for i in range(len(coeffs.timestep)):
-            latent_in = torch.cat([sample, sample]) if do_cfg else sample
-            t = int(coeffs.timestep[i])
-            ts = torch.full((latent_in.shape[0],), t, device=self.device)
-            eps = self.unet(latent_in.to(self.dtype), ts, embeds, lora,
-                            alpha, fuse_attention='packed',
-                            return_cross_probs=layers, **unet_kw)
-            if layers:
-                eps, aux = eps
-                for place, idx, probs in aux['cross_probs']:
-                    if (place, idx) in psum:
-                        psum[(place, idx)].add_(probs)
-                    else:
-                        psum[(place, idx)] = probs.float().clone()
-            eps = eps.float()
-            if do_cfg:
-                eps_u, eps_c = eps.chunk(2)
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-            sample, m_prev = solver.step(sample, m_prev, eps, coeffs, i)
-            if step_callback is not None:
-                stepped = step_callback(sample)
-                if stepped is not None:
-                    sample = torch.as_tensor(stepped).to(sample)
-            if callback is not None and i % callback_steps == 0:
-                callback(i, t, sample)
-        return sample, psum
+        with span('denoise', self.device):
+            solver = self.scheduler
+            coeffs = solver.step_coeffs(num_inference_steps)
+            lora, alpha = self.unet_lora, self.lora_alpha
+            layers = frozenset(idx for _, idx in capture)
+            step_callback = getattr(self.controller, 'step_callback', None)
+            sample, m_prev = lat, torch.zeros_like(lat)
+            psum = {}
+            for i in range(len(coeffs.timestep)):
+                t = int(coeffs.timestep[i])
+                with span('unet', self.device):
+                    latent_in = torch.cat([sample, sample]) if do_cfg \
+                        else sample
+                    ts = torch.full((latent_in.shape[0],), t,
+                                    device=self.device)
+                    eps = self.unet(latent_in.to(self.dtype), ts, embeds,
+                                    lora, alpha, fuse_attention='packed',
+                                    return_cross_probs=layers, **unet_kw)
+                if layers:
+                    eps, aux = eps
+                    for place, idx, probs in aux['cross_probs']:
+                        if (place, idx) in psum:
+                            psum[(place, idx)].add_(probs)
+                        else:
+                            psum[(place, idx)] = probs.float().clone()
+                with span('solver', self.device):
+                    eps = eps.float()
+                    if do_cfg:
+                        eps_u, eps_c = eps.chunk(2)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                    sample, m_prev = solver.step(sample, m_prev, eps, coeffs,
+                                                 i)
+                if step_callback is not None:
+                    stepped = step_callback(sample)
+                    if stepped is not None:
+                        sample = torch.as_tensor(stepped).to(sample)
+                if callback is not None and i % callback_steps == 0:
+                    callback(i, t, sample)
+            return sample, psum
 
     def _feed_controller(self, psum, num_inference_steps: int):
         """Hand the summed maps to the controller, in (place, layer_idx)
@@ -226,12 +234,13 @@ class EDLoRAPipeline:
         uint8 NHWC pixels."""
         if output_type == 'latent':
             return final
-        lat = final.to(self.dtype) / self.vae.cfg.scaling_factor
-        img = torch.clamp(self.vae.decode(lat) * 0.5 + 0.5, 0.0, 1.0)
-        img = img.permute(0, 2, 3, 1)
-        if output_type == 'np':
-            return img.float()
-        return torch.round(img.float() * 255.0).to(torch.uint8)
+        with span('decode', self.device):
+            lat = final.to(self.dtype) / self.vae.cfg.scaling_factor
+            img = torch.clamp(self.vae.decode(lat) * 0.5 + 0.5, 0.0, 1.0)
+            img = img.permute(0, 2, 3, 1)
+            if output_type == 'np':
+                return img.float()
+            return torch.round(img.float() * 255.0).to(torch.uint8)
 
     @torch.inference_mode()
     def _sample_on_device(self, prompt=None, height=512, width=512,
@@ -241,34 +250,36 @@ class EDLoRAPipeline:
                           callback_steps=1, seed=0, output_type='pil'):
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f'output_type must be one of {OUTPUT_TYPES}')
-        do_cfg = guidance_scale > 1.0
-        if prompt_embeds is not None:
-            embeds = torch.as_tensor(prompt_embeds).to(self.device)
-            b = embeds.shape[0] // 2 if do_cfg else embeds.shape[0]
-        else:
-            b = 1 if isinstance(prompt, str) else len(prompt)
-            embeds = self.encode_prompt(prompt, negative_prompt, do_cfg)
-        if num_images_per_prompt > 1:
-            n = num_images_per_prompt
-            if do_cfg:
-                neg, pos = embeds.chunk(2)
-                embeds = torch.cat([neg.repeat_interleave(n, 0),
-                                    pos.repeat_interleave(n, 0)])
+        with span('request', self.device, root=True):
+            do_cfg = guidance_scale > 1.0
+            if prompt_embeds is not None:
+                embeds = torch.as_tensor(prompt_embeds).to(self.device)
+                b = embeds.shape[0] // 2 if do_cfg else embeds.shape[0]
             else:
-                embeds = embeds.repeat_interleave(n, 0)
-            b *= n
-        lat = self._initial_latents(latents, b, height // 8, width // 8,
-                                    seed) * self.scheduler.init_noise_sigma()
-        embeds = embeds.to(self.dtype)
-        ckv = self.unet.cross_attention_kv(embeds, self.unet_lora,
-                                           self.lora_alpha)
-        final, psum = self._denoise(
-            embeds, lat, guidance_scale, num_inference_steps, do_cfg,
-            callback, callback_steps,
-            self._capture_layers(height // 8, width // 8), cross_kv=ckv)
-        out = self._decode(final, output_type)
-        self._feed_controller(psum, num_inference_steps)
-        return out
+                b = 1 if isinstance(prompt, str) else len(prompt)
+                embeds = self.encode_prompt(prompt, negative_prompt, do_cfg)
+            if num_images_per_prompt > 1:
+                n = num_images_per_prompt
+                if do_cfg:
+                    neg, pos = embeds.chunk(2)
+                    embeds = torch.cat([neg.repeat_interleave(n, 0),
+                                        pos.repeat_interleave(n, 0)])
+                else:
+                    embeds = embeds.repeat_interleave(n, 0)
+                b *= n
+            lat = self._initial_latents(
+                latents, b, height // 8, width // 8,
+                seed) * self.scheduler.init_noise_sigma()
+            embeds = embeds.to(self.dtype)
+            ckv = self.unet.cross_attention_kv(embeds, self.unet_lora,
+                                               self.lora_alpha)
+            final, psum = self._denoise(
+                embeds, lat, guidance_scale, num_inference_steps, do_cfg,
+                callback, callback_steps,
+                self._capture_layers(height // 8, width // 8), cross_kv=ckv)
+            out = self._decode(final, output_type)
+            self._feed_controller(psum, num_inference_steps)
+            return out
 
     def __call__(self,
                  prompt: Union[str, Sequence[str]] = None,
@@ -298,7 +309,7 @@ class EDLoRAPipeline:
             prompt, height, width, num_inference_steps, guidance_scale,
             negative_prompt, num_images_per_prompt, latents, prompt_embeds,
             callback, callback_steps, seed, output_type)
-        return _to_host(out, output_type)
+        return _to_host(out, output_type, last_request())
 
     def submit(self, *args, output_type: str = 'pil', **kwargs
                ) -> 'PendingSample':
@@ -316,21 +327,26 @@ class EDLoRAPipeline:
         return PendingSample(out, output_type)
 
 
-def _to_host(out: torch.Tensor, output_type: str):
-    arr = out.cpu().numpy()
-    if output_type == 'pil':
-        from PIL import Image
-        return [Image.fromarray(x) for x in arr]
-    return arr
+def _to_host(out: torch.Tensor, output_type: str, request: Optional[int]):
+    """The device output on the host (waits for the card), inside the
+    `result` span of the sampling call with ordinal `request`."""
+    with span('result', out.device, request=request):
+        arr = out.cpu().numpy()
+        if output_type == 'pil':
+            from PIL import Image
+            return [Image.fromarray(x) for x in arr]
+        return arr
 
 
 class PendingSample:
     """A queued sampling call (`EDLoRAPipeline.submit`); `result()` waits
-    for the device and converts."""
+    for the device and converts. It carries the ordinal of the call's
+    `request` span to its `result` span."""
 
     def __init__(self, device_out: torch.Tensor, output_type: str):
         self._dev = device_out
         self._output_type = output_type
+        self._request = last_request()
 
     def result(self):
-        return _to_host(self._dev, self._output_type)
+        return _to_host(self._dev, self._output_type, self._request)

@@ -48,6 +48,7 @@ from mixofshow_tpu_torch.pipelines.pipeline_edlora import (OUTPUT_TYPES,
                                                            EDLoRAPipeline,
                                                            _to_host)
 from mixofshow_tpu_torch.utils.device import COMPUTE_DTYPE
+from mixofshow_tpu_torch.utils.profiling import last_request, span
 
 
 def _repeat_cfg(embeds, n: int, use_cfg: bool):
@@ -176,32 +177,33 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
             raise ValueError('set_new_concept_cfg first')
         if len(prompt) != 1:
             raise ValueError('one layout prompt per call')
-        key = (repr(prompt), negative_prompt or '')
-        if self._encode_memo is not None and self._encode_memo[0] == key:
-            return self._encode_memo[1]
-        context_prompt, regions = prompt[0]
-        nl = NUM_CROSS_ATTENTION_LAYERS
-        texts = []
-        for p in [context_prompt] + [r[0] for r in regions]:
-            texts.extend(bind_concept_prompt([p], self.new_concept_cfg))
-        texts.append(negative_prompt or '')
-        texts.extend(r[1] or '' for r in regions)
-        emb = self._encode_texts(texts)
+        with span('encode', self.device):
+            key = (repr(prompt), negative_prompt or '')
+            if self._encode_memo is not None and self._encode_memo[0] == key:
+                return self._encode_memo[1]
+            context_prompt, regions = prompt[0]
+            nl = NUM_CROSS_ATTENTION_LAYERS
+            texts = []
+            for p in [context_prompt] + [r[0] for r in regions]:
+                texts.extend(bind_concept_prompt([p], self.new_concept_cfg))
+            texts.append(negative_prompt or '')
+            texts.extend(r[1] or '' for r in regions)
+            emb = self._encode_texts(texts)
 
-        n_lw = 1 + len(regions)
-        lw = emb[:n_lw * nl].reshape(n_lw, nl, *emb.shape[1:])
+            n_lw = 1 + len(regions)
+            lw = emb[:n_lw * nl].reshape(n_lw, nl, *emb.shape[1:])
 
-        def with_neg(i, pos):  # the plain negative over the 16 layer slots
-            neg = emb[n_lw * nl + i][None, None].expand(1, nl,
-                                                        *emb.shape[1:])
-            return torch.cat([neg, pos[None]]).to(self.dtype)
+            def with_neg(i, pos):  # the plain negative over the 16 layers
+                neg = emb[n_lw * nl + i][None, None].expand(1, nl,
+                                                            *emb.shape[1:])
+                return torch.cat([neg, pos[None]]).to(self.dtype)
 
-        prompt_embeds = with_neg(0, lw[0])
-        region_list = [(with_neg(1 + i, lw[1 + i]),
-                        np.asarray(box, np.float32))
-                       for i, (_, _, box) in enumerate(regions)]
-        self._encode_memo = (key, (prompt_embeds, region_list))
-        return prompt_embeds, region_list
+            prompt_embeds = with_neg(0, lw[0])
+            region_list = [(with_neg(1 + i, lw[1 + i]),
+                            np.asarray(box, np.float32))
+                           for i, (_, _, box) in enumerate(regions)]
+            self._encode_memo = (key, (prompt_embeds, region_list))
+            return prompt_embeds, region_list
 
     # ------------------------------------------------------------ adapters
     @torch.inference_mode()
@@ -211,33 +213,34 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
                           num_images: int = 1):
         """Keypose plus sketch features, each weighted by its map, tiled to
         `num_images` and doubled for CFG: NCHW, one per down block."""
-        states = []
-        for name, adapter, inp, weight, spec in (
-                ('keypose', self.keypose_adapter, keypose_input,
-                 keypose_weight, region_keypose_weight),
-                ('sketch', self.sketch_adapter, sketch_input, sketch_weight,
-                 region_sketch_weight)):
-            if inp is None:
-                continue
-            if adapter is None:
-                raise ValueError(f'a {name} input needs a {name} adapter')
-            feats = adapter(self._upload(inp.transpose(0, 3, 1, 2)))
-            states.append((feats, weight, spec))
-        if not states:
-            return None
-        merged = []
-        for idx in range(len(states[0][0])):
-            total = None
-            for feats, weight, spec in states:
-                f = feats[idx]
-                wmap = parse_region_weight_spec(spec, height, width,
-                                                f.shape[2], f.shape[3],
-                                                float(weight))
-                f = f * self._upload(wmap)[None, None]
-                total = f if total is None else total + f
-            total = total.repeat_interleave(num_images, 0)
-            merged.append(torch.cat([total, total]) if use_cfg else total)
-        return merged
+        with span('adapter', self.device):
+            states = []
+            for name, adapter, inp, weight, spec in (
+                    ('keypose', self.keypose_adapter, keypose_input,
+                     keypose_weight, region_keypose_weight),
+                    ('sketch', self.sketch_adapter, sketch_input,
+                     sketch_weight, region_sketch_weight)):
+                if inp is None:
+                    continue
+                if adapter is None:
+                    raise ValueError(f'a {name} input needs a {name} adapter')
+                feats = adapter(self._upload(inp.transpose(0, 3, 1, 2)))
+                states.append((feats, weight, spec))
+            if not states:
+                return None
+            merged = []
+            for idx in range(len(states[0][0])):
+                total = None
+                for feats, weight, spec in states:
+                    f = feats[idx]
+                    wmap = parse_region_weight_spec(spec, height, width,
+                                                    f.shape[2], f.shape[3],
+                                                    float(weight))
+                    f = f * self._upload(wmap)[None, None]
+                    total = f if total is None else total + f
+                total = total.repeat_interleave(num_images, 0)
+                merged.append(torch.cat([total, total]) if use_cfg else total)
+            return merged
 
     # ------------------------------------------------------------ sampling
     @torch.inference_mode()
@@ -263,39 +266,41 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
         if self.controller is not None:
             raise ValueError('regional sampling takes no attention '
                              'controller (the JAX package\'s has none)')
-        use_cfg = guidance_scale > 1.0
-        n = int(num_images_per_prompt)
-        neg = negative_prompt[0] if isinstance(negative_prompt,
-                                               (list, tuple)) else \
-            (negative_prompt or '')
-        prompt_embeds, region_list = self.encode_region_prompt(prompt, neg)
-        if not use_cfg:  # keep the layerwise (cond) half only
-            prompt_embeds = prompt_embeds[1:]
-            region_list = [(e[1:], box) for e, box in region_list]
-        prompt_embeds = _repeat_cfg(prompt_embeds, n, use_cfg)
-        region_list = [(_repeat_cfg(e, n, use_cfg), box)
-                       for e, box in region_list]
+        with span('request', self.device, root=True):
+            use_cfg = guidance_scale > 1.0
+            n = int(num_images_per_prompt)
+            neg = negative_prompt[0] if isinstance(negative_prompt,
+                                                   (list, tuple)) else \
+                (negative_prompt or '')
+            prompt_embeds, region_list = self.encode_region_prompt(prompt, neg)
+            if not use_cfg:  # keep the layerwise (cond) half only
+                prompt_embeds = prompt_embeds[1:]
+                region_list = [(e[1:], box) for e, box in region_list]
+            prompt_embeds = _repeat_cfg(prompt_embeds, n, use_cfg)
+            region_list = [(_repeat_cfg(e, n, use_cfg), box)
+                           for e, box in region_list]
 
-        keypose, sketch = (None if img is None else
-                           preprocess_adapter_image(img, height, width)
-                           for img in (keypose_adapter_input,
-                                       sketch_adapter_input))
-        adapter_features = self._adapter_features(
-            keypose, keypose_adaptor_weight, region_keypose_adaptor_weight,
-            sketch, sketch_adaptor_weight, region_sketch_adaptor_weight,
-            height, width, use_cfg, num_images=n)
+            keypose, sketch = (None if img is None else
+                               preprocess_adapter_image(img, height, width)
+                               for img in (keypose_adapter_input,
+                                           sketch_adapter_input))
+            adapter_features = self._adapter_features(
+                keypose, keypose_adaptor_weight, region_keypose_adaptor_weight,
+                sketch, sketch_adaptor_weight, region_sketch_adaptor_weight,
+                height, width, use_cfg, num_images=n)
 
-        lat = self._initial_latents(latents, n, height // 8, width // 8,
-                                    seed) * self.scheduler.init_noise_sigma()
-        override = make_region_override(
-            [box for _, box in region_list], self.unet.cfg.attention_heads,
-            self.unet.cross_attention_kv(prompt_embeds),
-            [self.unet.cross_attention_kv(e) for e, _ in region_list])
-        final, _ = self._denoise(prompt_embeds, lat, guidance_scale,
-                                 num_inference_steps, use_cfg,
-                                 adapter_features=adapter_features,
-                                 cross_attn_override=override)
-        return self._decode(final, output_type)
+            lat = self._initial_latents(
+                latents, n, height // 8, width // 8,
+                seed) * self.scheduler.init_noise_sigma()
+            override = make_region_override(
+                [box for _, box in region_list], self.unet.cfg.attention_heads,
+                self.unet.cross_attention_kv(prompt_embeds),
+                [self.unet.cross_attention_kv(e) for e, _ in region_list])
+            final, _ = self._denoise(prompt_embeds, lat, guidance_scale,
+                                     num_inference_steps, use_cfg,
+                                     adapter_features=adapter_features,
+                                     cross_attn_override=override)
+            return self._decode(final, output_type)
 
     def __call__(self, *args, output_type: str = 'pil', **kwargs):
         """Sample `num_images_per_prompt` images of one regional layout.
@@ -313,4 +318,4 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
         ('latent'). `submit` takes the same arguments without waiting."""
         out = self._sample_on_device(*args, output_type=output_type,
                                      **kwargs)
-        return _to_host(out, output_type)
+        return _to_host(out, output_type, last_request())

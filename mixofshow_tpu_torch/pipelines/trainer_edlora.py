@@ -57,6 +57,7 @@ from mixofshow_tpu_torch.pipelines.concepts import (NUM_CROSS_ATTENTION_LAYERS,
                                                     init_concepts)
 from mixofshow_tpu_torch.text.tokenizer import CLIPTokenizer
 from mixofshow_tpu_torch.utils.device import COMPUTE_DTYPE, as_device
+from mixofshow_tpu_torch.utils.profiling import span
 
 GROUPS = ('emb', 'text', 'unet')
 
@@ -358,12 +359,13 @@ class EDLoRATrainer:
 
         want_probs = self.attn_reg_weight is not None
         pos = self._tensor(batch['concept_pos'], torch.long)
-        out = self.unet(noisy.to(cdt), t, ehs,
-                        lora=trainable['unet_lora'] or None,
-                        lora_alpha=self.lora_alpha,
-                        return_cross_probs=want_probs,
-                        prob_columns=pos if want_probs else None,
-                        remat=self.gradient_checkpoint)
+        with span('unet', self.device):
+            out = self.unet(noisy.to(cdt), t, ehs,
+                            lora=trainable['unet_lora'] or None,
+                            lora_alpha=self.lora_alpha,
+                            return_cross_probs=want_probs,
+                            prob_columns=pos if want_probs else None,
+                            remat=self.gradient_checkpoint)
         pred, aux = out if want_probs else (out, None)
 
         target = self.scheduler.target(latents, noise, t)
@@ -400,27 +402,32 @@ class EDLoRATrainer:
         Updates `state` in place and returns the loss dict (device tensors;
         reading them syncs). The freeze reads the updated embedding, which
         every rank holds alike, so the ranks agree on it."""
-        loss, loss_dict = self.loss_fn(state.trainable, batch, generator,
-                                       draws)
-        (loss / state.grad_accum).backward()
-        state.step += 1
-        emb = state.trainable['concept_embedding']
-        if state.step % state.grad_accum == 0:
-            before = emb.detach().clone()
-            reduce_grads((p for group in state.optimizer.param_groups
-                          for p in group['params']), self.mesh)
-            state.optimizer.step()
-            state.lr_schedule.step()
-            state.optimizer.zero_grad(set_to_none=True)
+        with span('train.step', self.device, root=True):
+            with span('train.forward', self.device):
+                loss, loss_dict = self.loss_fn(state.trainable, batch,
+                                               generator, draws)
+            with span('train.backward', self.device):
+                (loss / state.grad_accum).backward()
+            state.step += 1
+            emb = state.trainable['concept_embedding']
+            if state.step % state.grad_accum == 0:
+                with span('train.optimizer', self.device):
+                    before = emb.detach().clone()
+                    reduce_grads((p for group in state.optimizer.param_groups
+                                  for p in group['params']), self.mesh)
+                    state.optimizer.step()
+                    state.lr_schedule.step()
+                    state.optimizer.zero_grad(set_to_none=True)
+                    with torch.no_grad():
+                        # a frozen embedding keeps its value (Adam's
+                        # moments moved)
+                        emb.copy_(torch.where(state.emb_frozen, before, emb))
             with torch.no_grad():
-                # a frozen embedding keeps its value; Adam's moments moved
-                emb.copy_(torch.where(state.emb_frozen, before, emb))
-        with torch.no_grad():
-            norm_mean = emb.norm(dim=-1).mean()
-            state.emb_frozen = state.emb_frozen | (
-                norm_mean >= self.emb_norm_threshold)
-        loss_dict['Norm_mean'] = norm_mean
-        return loss_dict
+                norm_mean = emb.norm(dim=-1).mean()
+                state.emb_frozen = state.emb_frozen | (
+                    norm_mean >= self.emb_norm_threshold)
+            loss_dict['Norm_mean'] = norm_mean
+            return loss_dict
 
     # -------------------------------------------------------------- deltas
     def _rows(self, cfg):
