@@ -44,7 +44,10 @@ line when any fails, or when no CUDA device is visible):
                 and b swapped, SiLU dropped) over its bf16 bound, and its
                 backward against autograd of the plain version; K4's
                 forward also at the int8 serving requests' shapes
-                (FLASH_INFERENCE), with SDPA's time;
+                (FLASH_INFERENCE), with SDPA's time; K1 and K4 through each
+                bf16 design of csrc/attn_fwd.cu that takes the shape
+                (ping-pong and lock-step up to D 80, the route passed
+                explicitly), each within the bound and timed beside SDPA;
   3b. int8    — the int8 serving modes' dense pool (INT8_DENSE, phase 5's
                 request's GEGLU, projections and cross K/V) and resnet convs
                 (INT8_CONV): the card's int32 accumulators against exact
@@ -168,8 +171,10 @@ line when any fails, or when no CUDA device is visible):
                 hash the sha256 of the .txt), images of the canvas size and
                 not constant (9a's two differ), and the launches of one
                 request: K1 500 (750 at 1024x2048), K7 800, K2 and K8 30,
-                K3 1, no flash kernel. Prints the load, sampling and save
-                seconds and the peak device memory.
+                K3 1, no flash kernel; K1's by design: 500 ping-pong (the
+                heads 40 and 80 wide, 32,768 keys among them at 1024x2048)
+                and the 250 of 160-wide heads lock-step. Prints the load,
+                sampling and save seconds and the peak device memory.
 Phases 5 and 6 also check that no flash kernel launched. Then the INT8_TABLE
 line, one JSON line with the kernels (launches: phases 5 to 9 together, 5q,
 6q, 7b and 7c included; 7d runs in its own process), the nvidia-smi line,
@@ -533,33 +538,44 @@ def phase_kernels(dev):
                                 (2, 8192, 8, 80, 8192, 8192),
                                 (2, 2048, 8, 160, 2048, 2048)]:
         q, k, v = randn(b, s, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
-        out = fa.attn_fwd(q, k, v, kvl)
         rows = _twin_rows(b, h, s, sk, dev)
-        qs, got = (q, out) if rows is None else (q[:, rows], out[:, rows])
+        qs = q if rows is None else q[:, rows]
         ref = fa.attn_fwd_plain(qs, k, v, kvl)
-        err, rel = _max_err(got, ref), _flash_err(got, ref)
         fault = min(_flash_err(f, ref) for f in _attn_faults(qs, k, v, kvl))
-        ms = cuda_ms(lambda: fa.attn_fwd(q, k, v, kvl))
         pms = cuda_ms(lambda: fa.attn_fwd_plain(qs, k, v, kvl))
-        bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], out),
+        bnd = least_time(nbytes(q, k[:, :kvl], v[:, :kvl], q),
                     attn_flops(b, h, s, kvl, d, 2), PEAK_BF16)
         # a ragged kv_len: SDPA over the first kv_len keys
         lib = sdpa_ms(q, k[:, :kvl], v[:, :kvl])
         subset = '' if rows is None else \
             f' (twin on {len(rows)} of {s} query rows: the first, middle ' \
             f'and last {TWIN_ROWS})'
-        print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
-              f'kv_len={kvl}: error vs twin {rel:.3e} of max|twin| (bound '
-              f'{ATTN_BF16_REL}), max_abs_err {err:.3e}; planted fault '
-              f'{fault:.3e} (must exceed {ATTN_BF16_REL}){subset}; kernel '
-              f'{ms:.4f} ms, plain {pms:.4f} ms, least {bnd[0]:.4f} ms '
-              f'({bnd[1]}), SDPA {lib:.4f} ms', flush=True)
-        check(math.isfinite(rel) and rel <= ATTN_BF16_REL,
-              'attn_fwd disagrees')
+        shipped = fl.launch_route(q, k, v)
+        # every design that takes the shape, the route passed explicitly
+        for route in attn_designs(d):
+            out = fa.attn_fwd(q, k, v, kvl, _route=route)
+            got = out if rows is None else out[:, rows]
+            err, rel = _max_err(got, ref), _flash_err(got, ref)
+            ms = cuda_ms(lambda: fa.attn_fwd(q, k, v, kvl, _route=route))
+            print(f'[kernels] attn_fwd (B,S,H,D)=({b},{s},{h},{d}) Sk={sk} '
+                  f'kv_len={kvl} {route}'
+                  f'{" (shipped)" if route == shipped else ""}: error vs '
+                  f'twin {rel:.3e} of max|twin| (bound {ATTN_BF16_REL}), '
+                  f'max_abs_err {err:.3e}; planted fault {fault:.3e} (must '
+                  f'exceed {ATTN_BF16_REL}){subset}; kernel {ms:.4f} ms, '
+                  f'plain {pms:.4f} ms, least {bnd[0]:.4f} ms ({bnd[1]}), '
+                  f'SDPA {lib:.4f} ms', flush=True)
+            check(math.isfinite(rel) and rel <= ATTN_BF16_REL,
+                  f'attn_fwd ({route}) disagrees')
+            if route == shipped:
+                res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
         check(fault > ATTN_BF16_REL,
               f'attn_fwd bound {ATTN_BF16_REL} does not reject the planted '
               'fault')
-        res.setdefault('attn_fwd', row(err, ms, pms, bnd, lib))
+        # heads up to 80 wide (the 2x canvas's res-128 layer among them)
+        # take the ping-pong design
+        check(d > 80 or shipped == 'pingpong',
+              f'attn_fwd at D {d} routes to {shipped}')
     # K2 at the VAE decoder's GroupNorm inputs, NCHW, each with its
     # launches a decode (DECODE_NORMS): 2 images (the main path) and 4 (a
     # validation batch); 1 image of the 2x decoder (DECODE_NORMS_2X,
@@ -715,6 +731,8 @@ def flash_inference_checks(dev):
         with torch.inference_mode():
             o, lse = fl.flash_fwd(q, k, v)
             ro, rlse = fl.flash_fwd_plain(q, k, v)
+            flash_fwd_designs(q, k, v, ro, rlse,
+                              f'inference (B,S,H,D)=({b},{s},{h},{d})')
             rel, err = _flash_err(o, ro), _max_err(o, ro)
             lse_err = _max_err(lse, rlse)
             ms = cuda_ms(lambda: fl.flash_fwd(q, k, v))
@@ -932,6 +950,14 @@ def apply_kernel_checks(dev):
     return first
 
 
+def attn_designs(d):
+    """The bf16 designs of csrc/attn_fwd.cu that take heads d wide: both up
+    to D 80 (the lock-step one at its 96-wide tiles), the lock-step one up
+    to 160."""
+    return ('pingpong', 'lockstep') if d <= fl.PINGPONG_MAX_D else \
+        ('lockstep',)
+
+
 def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -997,6 +1023,25 @@ def _flash_err(got, want):
     return err
 
 
+def flash_fwd_designs(q, k, v, ro, rlse, what):
+    """K4's forward through every bf16 design that takes the shape (the
+    route passed explicitly) against the twin's output and LSE, each
+    design's time beside SDPA's."""
+    lib = sdpa_ms(q, k, v)
+    shipped = fl.launch_route(q, k, v)
+    for route in attn_designs(q.shape[3]):
+        o, lse = fl.flash_fwd(q, k, v, _route=route)
+        rel, lse_err = _flash_err(o, ro), _max_err(lse, rlse)
+        ms = cuda_ms(lambda: fl.flash_fwd(q, k, v, _route=route))
+        print(f'[kernels] flash_fwd {what} {route}'
+              f'{" (shipped)" if route == shipped else ""}: error vs twin '
+              f'{rel:.3e} of max|twin| (bound {FLASH_BF16_REL}), lse '
+              f'{lse_err:.3e} (bound {FLASH_LSE_BOUND}); kernel {ms:.4f} ms,'
+              f' SDPA {lib:.4f} ms', flush=True)
+        check(math.isfinite(rel) and rel <= FLASH_BF16_REL and
+              lse_err <= FLASH_LSE_BOUND, f'flash_fwd ({route}) disagrees')
+
+
 def flash_kernel_checks(dev):
     """K4, K5 and K6 against their plain twins at the training path's
     shapes (SD1.5, 512², batch 2: the res-64 and res-32 self-attentions), a
@@ -1020,6 +1065,9 @@ def flash_kernel_checks(dev):
         lse_bound = FLASH_LSE_BOUND if bf16 else FLASH_F32_BOUND
         o, lse = fl.flash_fwd(q, k, v)
         ro, rlse = fl.flash_fwd_plain(q, k, v)
+        if bf16:
+            flash_fwd_designs(q, k, v, ro, rlse, f'(B,Sq,H,D)=({b},{sq},'
+                              f'{h},{d}) Sk={sk}')
         dvec = fl.flash_dvec(do, o)
         dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, dvec)
         dq = fl.flash_bwd_dq(q, k, v, do, lse, dvec)
@@ -2142,13 +2190,21 @@ def _cli_run(name, dev, card, argv, k1, n_images, canvas):
     want.update(attn_fwd=k1, region_attn=16 * 50, gn_spatial_sums=30,
                 gn_apply=30, attn_block=1)
     check(counts == want, f'cli {name}: launches {counts}, expected {want}')
+    # K1 by design: the two layers of heads 40 and 80 wide (at 1024x2048
+    # the res-128 layer's 32,768 keys among them) on the ping-pong kernel,
+    # the res-32 layer's 160-wide heads (2048 tokens, 1024x2048 only) on
+    # the lock-step one
+    routes = dict(fa.attn_fwd.routes)
+    want_routes = {'pingpong': 500, 'lockstep': k1 - 500}
+    check(routes == {r: n for r, n in want_routes.items() if n},
+          f'cli {name}: K1 routes {routes}, expected {want_routes}')
     print(f'[cli] {name}: {canvas[0]}x{canvas[1]}, {n_images} image(s), '
           f'{args.num_inference_steps} steps, seed {args.seed}: load '
           f'{report["load_s"]:.3f} s, sampling {report["sample_s"]:.3f} s, '
           f'save {report["save_s"]:.3f} s; peak device memory '
           f'{peak / 2 ** 30:.2f} GiB (max_memory_allocated, load '
           f'included); files {[os.path.basename(f) for f in files]}; '
-          f'launches {counts}; {card}', flush=True)
+          f'launches {counts}; K1 routes {routes}; {card}', flush=True)
     return counts
 
 

@@ -6,7 +6,8 @@ fusion solver (solve.py) is plain torch.linalg, as the JAX package left it
 to XLA.
 
 `KERNELS` maps each kernel's name to the wrapper that launches it; a
-wrapper's `launches` attribute counts its kernel launches in this process.
+wrapper's `launches` attribute counts its kernel launches in this process,
+and K1's and K4's `routes` (attn_fwd, flash_fwd) count them by design.
 """
 from mixofshow_tpu_torch.ops.fused_attention import (attention_block,
                                                      attention_packed,
@@ -29,6 +30,8 @@ KERNELS = {'attn_fwd': attn_fwd, 'gn_spatial_sums': spatial_sums,
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, 'routes'):
+            fn.routes = {}
 
 
 def launch_counts() -> dict:

@@ -26,6 +26,15 @@ the plain twins (the backward ones from the FA2 formulas with the LSE, not
 autograd of the plain forward), CUDA tensors launch K4, then K5 and K6.
 There is no fallback between the two. `<wrapper>.launches` counts kernel
 launches.
+
+csrc/attn_fwd.cu has two bf16 designs: the warp-specialised ping-pong
+kernel (a TMA producer warp, consumer warpgroups taking turns at the tensor
+cores) for heads up to 80 wide, and the lock-step one for wider heads and
+for inputs TMA cannot read. `fwd_route`, a pure function of what the inputs
+show, picks the design of every K1 and K4 launch; the wrapper passes it to
+the entry point, which refuses (returns -1 for) a design the arguments do
+not allow. `flash_fwd.routes` (and `attn_fwd.routes`) count launches by
+design.
 """
 from __future__ import annotations
 
@@ -36,6 +45,55 @@ import torch
 from mixofshow_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 160  # SD1.x's widest head
+
+# the designs of csrc/attn_fwd.cu's forward, in the order of its Route codes:
+# the fp32 SIMT kernel, the bf16 lock-step and ping-pong wgmma kernels, and
+# (K1 only, D > 160) csrc/attn_wide.cu's core
+ROUTES = ('fp32', 'lockstep', 'pingpong', 'wide')
+PINGPONG_MAX_D = 80
+
+
+def fwd_route(dtype, d: int, aligned: bool) -> str:
+    """The design a forward launch of csrc/attn_fwd.cu takes (a name of
+    ROUTES), from what its inputs show: bf16 heads up to 80 wide that TMA
+    can read (`aligned`, see `tma_aligned`) take the ping-pong design, other
+    bf16 heads up to 160 the lock-step one. Measured on an H100 at every K1
+    and K4 shape of the main paths, from grids of 96 and 128 blocks on 132
+    SMs to 32,768 keys, the ping-pong design was the faster, so the grid and
+    the key count do not enter."""
+    if dtype == torch.float32:
+        return 'fp32'
+    if d > MAX_HEAD_DIM:
+        return 'wide'
+    if d <= PINGPONG_MAX_D and aligned:
+        return 'pingpong'
+    return 'lockstep'
+
+
+def tma_aligned(*ts) -> bool:
+    """True where every (B, S, H, D) tensor can be read through TMA: a 16 B
+    aligned base, and head, token and batch strides of 16 B multiples (a
+    single batch's stride is never stepped)."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0
+               and t.stride(1) % 8 == 0
+               and (t.shape[0] == 1 or t.stride(0) % 8 == 0) for t in ts)
+
+
+def launch_route(q, k, v, route=None) -> str:
+    """`route` checked against ROUTES, or `fwd_route` of one launch's
+    inputs. An explicit route is for tests and the kernel tools that hold
+    the designs against each other; the entry point refuses one the
+    arguments do not allow."""
+    if route is not None:
+        if route not in ROUTES:
+            raise ValueError(f'route {route!r} is none of {ROUTES}')
+        return route
+    return fwd_route(q.dtype, q.shape[3], tma_aligned(q, k, v))
+
+
+def count_route(wrapper, route: str) -> None:
+    """One launch of `wrapper` on `route` in its `routes` counter."""
+    wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
 
 
 def flash_attention_supported(sq: int, sk: int, d: int) -> bool:
@@ -132,14 +190,16 @@ def _check_stats(lse, dvec, b, h, sq):
                              f'{tuple(t.shape)}')
 
 
-def flash_fwd(q, k, v):
+def flash_fwd(q, k, v, *, _route=None):
     """Attention forward over (B, S, H, D) -> (o (B, Sq, H, D), lse (B, H,
     Sq) fp32). K4: CUDA tensors (fp32 or bf16, heads contiguous within a
-    token) launch mos_flash_fwd; CPU tensors run `flash_fwd_plain`."""
+    token) launch mos_flash_fwd on the design `fwd_route` picks (`_route`
+    names one instead, for tests); CPU tensors run `flash_fwd_plain`."""
     if _build.device_type(q, k, v) == 'cpu':
         return flash_fwd_plain(q, k, v)
     code = _check(q, k, v, contiguous=False)
     b, sq, h, d = q.shape
+    route = launch_route(q, k, v, _route)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.cuda_lib()
@@ -149,13 +209,15 @@ def flash_fwd(q, k, v):
             lse.data_ptr(), b, sq, k.shape[1], h, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            1.0 / math.sqrt(d), code, _build.stream(q))
-    _build.check(rc, 'flash_fwd')
+            1.0 / math.sqrt(d), code, ROUTES.index(route), _build.stream(q))
+    _build.check(rc, f'flash_fwd ({route})')
     flash_fwd.launches += 1
+    count_route(flash_fwd, route)
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.routes = {}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec):

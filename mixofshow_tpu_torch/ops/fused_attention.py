@@ -7,11 +7,16 @@ Port of mixofshow_tpu/ops/fused_attention.py:
     version ran on q/k/v whose heads were zero-padded to 128 lanes in HBM;
     the port's projections produce the natural (B, S, H, D) layout and the
     kernel pads D only inside its shared-memory tiles. For bf16 heads up to
-    160 wide it is one wgmma kernel (shared with K4, `flash_fwd`): two or
-    four warpgroups of 64 query rows share each K/V tile of a 3- or 4-stage
-    cp.async ring, P stays in registers as the A operand of P·V, and the
-    next tile's logits are in flight while this tile's softmax runs. The
-    scale is folded into q before the bf16 rounding, as the TPU kernel did.
+    160 wide it is a wgmma kernel shared with K4 (`flash_fwd`) in two
+    designs: up to D 80 a producer warp keeps a TMA ring of K/V tiles full
+    for two or three consumer warpgroups that take turns at the tensor cores
+    (ping-pong); wider heads, and heads TMA cannot read, go to two
+    warpgroups that share each K/V tile of a cp.async ring in lock-step.
+    `flash_attention.fwd_route` picks the design; `attn_fwd.routes` counts
+    launches by design. In both, P stays in registers as the A operand of
+    P·V, and the next tile's logits are in flight while this tile's softmax
+    runs. The scale is folded into q before the bf16 rounding, as the TPU
+    kernel did.
     `attention_packed` is the processor around it: the q/k/v/out projections
     stay plain `F.linear` products, as the JAX package left them to XLA.
     Its bf16 heads wider than 160 (up to 512) run csrc/attn_wide.cu, the
@@ -41,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from mixofshow_tpu_torch.ops import _build
-from mixofshow_tpu_torch.ops.flash_attention import scaled_q
+from mixofshow_tpu_torch.ops.flash_attention import (ROUTES, count_route,
+                                                     launch_route, scaled_q)
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
@@ -78,11 +84,12 @@ def attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads: int,
 
 
 # ------------------------------------------------------------------ launches
-def _launch_attn(q, k, v, out, kv_len: int,
-                 scale: Optional[float] = None) -> None:
+def _launch_attn(q, k, v, out, kv_len: int, scale: Optional[float] = None,
+                 route: Optional[str] = None) -> str:
     """Launch csrc/attn_fwd.cu on (B, S, H, D) views whose heads are
     contiguous within a token (head stride D, element stride 1); the logits
-    are scaled by `scale` (default 1/√D)."""
+    are scaled by `scale` (default 1/√D). Returns the design launched:
+    `route`, or `flash_attention.fwd_route`'s choice."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) \
@@ -98,6 +105,7 @@ def _launch_attn(q, k, v, out, kv_len: int,
             raise ValueError('attn_fwd needs heads contiguous within a token '
                              f'(strides {t.stride()})')
     code = _build.dtype_code(q, k, v, out)
+    route = launch_route(q, k, v, route)
     lib = _build.cuda_lib()
     with torch.cuda.device(q.device):
         rc = lib.mos_attn_fwd(
@@ -106,8 +114,9 @@ def _launch_attn(q, k, v, out, kv_len: int,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             1.0 / math.sqrt(d) if scale is None else scale, code,
-            _build.stream(q))
-    _build.check(rc, 'attn_fwd')
+            ROUTES.index(route), _build.stream(q))
+    _build.check(rc, f'attn_fwd ({route})')
+    return route
 
 
 _GEMM_COLUMNS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
@@ -154,22 +163,25 @@ def _gemm_grouped(triples):
 
 
 # ----------------------------------------------------------------- wrappers
-def attn_fwd(q, k, v, kv_len: Optional[int] = None):
+def attn_fwd(q, k, v, kv_len: Optional[int] = None, *, _route=None):
     """Attention forward over (B, S, H, D) q/k/v -> (B, Sq, H, D).
 
     K1: CUDA tensors launch csrc/attn_fwd.cu (bf16 on wgmma with an fp32
-    softmax, or fp32 throughout); CPU tensors run `attn_fwd_plain`."""
+    softmax, or fp32 throughout) on the design `fwd_route` picks (`_route`
+    names one instead, for tests); CPU tensors run `attn_fwd_plain`."""
     kv_len = k.shape[1] if kv_len is None else kv_len
     _build.forward_only('attn_fwd', q, k, v)
     if _build.device_type(q, k, v) == 'cpu':
         return attn_fwd_plain(q, k, v, kv_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_attn(q, k, v, out, kv_len)
+    route = _launch_attn(q, k, v, out, kv_len, route=_route)
     attn_fwd.launches += 1
+    count_route(attn_fwd, route)
     return out
 
 
 attn_fwd.launches = 0
+attn_fwd.routes = {}
 
 
 def attention_packed(x, ctx, wq, wk, wv, wo, bias, heads: int):

@@ -78,9 +78,8 @@ def k1_faults(q, k, v, kv_len):
 
 
 # K1's shapes: every bf16 head-width tile (D 16 to 160, and 512 on the wide
-# core), Sq and kv_len off the 64-key and the 128- and 256-query tiles,
-# batch 1, and grids on both sides of the two/four-warpgroup rule (four
-# from 99 blocks of 256 queries on 132 SMs, up to D 80)
+# core), Sq and kv_len off the 64- and 128-key and the 128- and 192-query
+# tiles, batch 1, and grids from one block to more than the SMs hold
 ATTN_CASES = [(2, 100, 130, 2, 16, 77), (1, 256, 256, 2, 40, 256),
               (2, 1024, 1024, 8, 80, 1024), (1, 64, 77, 3, 24, 77),
               (1, 200, 200, 2, 160, 199), (1, 300, 300, 1, 512, 290),
@@ -124,6 +123,50 @@ def test_attn_fwd_reads_strided_views(dev):
     q, k, v = (t.view(2, 300, 2, 32) for t in qkv.split(64, dim=-1))
     assert twin_err(fa.attn_fwd(q, k, v), fa.attn_fwd_plain(q, k, v)) \
         <= ATTN_BF16_REL
+
+
+# K1's cases up to D 80, which both bf16 designs of csrc/attn_fwd.cu take
+DESIGN_CASES = [c for c in ATTN_CASES if c[4] <= fl.PINGPONG_MAX_D]
+
+
+@pytest.mark.parametrize('route', ['pingpong', 'lockstep'])
+@pytest.mark.parametrize('b,sq,sk,h,d,kv_len', DESIGN_CASES)
+def test_attn_fwd_designs_match_plain(dev, route, b, sq, sk, h, d, kv_len):
+    """Each design, passed explicitly, against the twin."""
+    q = _randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=1)
+    k = _randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=2)
+    v = _randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=3)
+    out = fa.attn_fwd(q, k, v, kv_len, _route=route)
+    torch.cuda.synchronize()
+    assert twin_err(out, fa.attn_fwd_plain(q, k, v, kv_len)) <= ATTN_BF16_REL
+
+
+def test_attn_fwd_unaligned_views_take_the_lockstep_design(dev):
+    """A view 2 B off a 16 B boundary cannot be read through TMA: the
+    route keeps the lock-step kernel, which is right there too."""
+    base = _randn(dev, 2, 300, 3 * 80 + 8, dtype=torch.bfloat16)
+    q, k, v = (base[..., 1 + i * 80:1 + (i + 1) * 80].unflatten(-1, (2, 40))
+               for i in range(3))
+    assert not fl.tma_aligned(q, k, v)
+    ops.reset_launch_counts()
+    out = fa.attn_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.attn_fwd.routes == {'lockstep': 1}
+    assert twin_err(out, fa.attn_fwd_plain(q, k, v)) <= ATTN_BF16_REL
+
+
+def test_attn_fwd_refuses_a_design_its_arguments_do_not_allow(dev):
+    wide = _randn(dev, 1, 128, 2, 100, dtype=torch.bfloat16)
+    q = _randn(dev, 1, 128, 2, 40, dtype=torch.bfloat16)
+    base = _randn(dev, 1, 128, 88, dtype=torch.bfloat16)
+    off = base[..., 1:81].unflatten(-1, (2, 40))
+    for args, route in [((wide,) * 3, 'pingpong'), ((off, q, q), 'pingpong'),
+                        ((q,) * 3, 'wide'), ((q,) * 3, 'fp32')]:
+        with pytest.raises(RuntimeError, match='refused'):
+            fa.attn_fwd(*args, _route=route)
+    for route in ('wide', 'fp32'):
+        with pytest.raises(RuntimeError, match='refused'):
+            fl.flash_fwd(q, q, q, _route=route)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -434,6 +477,22 @@ def test_flash_kernels_match_twins(dev, dtype, b, sq, sk, h, d):
     bad = fl.flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(dvec))
     assert twin_err(bad[0], want[0]) > bound
     assert twin_err(bad[1], want[1]) > bound
+
+
+@pytest.mark.parametrize('route', ['pingpong', 'lockstep'])
+@pytest.mark.parametrize('b,sq,sk,h,d', [c for c in FLASH_CASES
+                                         if c[4] <= fl.PINGPONG_MAX_D])
+def test_flash_fwd_designs_match_twins(dev, route, b, sq, sk, h, d):
+    """K4's forward through each design, passed explicitly: o and the LSE
+    the backward kernels read."""
+    q = _randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=1)
+    k = _randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=2)
+    v = _randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=3)
+    o, lse = fl.flash_fwd(q, k, v, _route=route)
+    torch.cuda.synchronize()
+    ro, rlse = fl.flash_fwd_plain(q, k, v)
+    assert twin_err(o, ro) <= FLASH_BF16_REL
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=FLASH_LSE_TOL)
 
 
 # K6's shapes: every bf16 head-width tile (D 16 to 160: 16, 32, 48, 64, 80,

@@ -1,9 +1,11 @@
-// K1/K4 (csrc/attn_fwd.cu) tile variants, timed against each other on the
-// card by tools/port_attn_tiles.py. Variant: (warpgroups a block, ring
-// stages of 64 keys):
-//   0 (2, 4): shipped for small grids and wide heads
-//   1 (2, 3)   2 (4, 4)   3 (3, 4)
-//   4 (4, 3): shipped up to DP 80 where the grid fills the SMs
+// K1/K4 (csrc/attn_fwd.cu) design and tile variants, timed against each
+// other on the card by tools/port_attn_tiles.py. Variant:
+//   0 the lock-step design at 96-wide tiles (the route of heads up to 80
+//     that TMA cannot read)
+//   ping-pong (keys a tile, consumer warpgroups, ring stages):
+//   1 (128, 3, 3), shipped up to DP 48      2 (128, 2, 3), shipped above
+//   3 (96, 3, 3)    4 (64, 4, 4)    5 (64, 3, 4)    6 (128, 3, 4)
+//   7 (128, 2, 2)
 // at D 40 (DP 48) and D 80 (DP 80). Build with csrc/attn_wide.cu, which
 // attn_fwd.cu's dispatch calls for wide heads.
 #include "../mixofshow_tpu_torch/csrc/attn_fwd.cu"
@@ -13,11 +15,14 @@ namespace {
 template <int DP>
 int variant(int which, const AttnParams& p, cudaStream_t st) {
   switch (which) {
-    case 0: return launch_bf16<DP, 2, 4>(p, st);
-    case 1: return launch_bf16<DP, 2, 3>(p, st);
-    case 2: return launch_bf16<DP, 4, 4>(p, st);
-    case 3: return launch_bf16<DP, 3, 4>(p, st);
-    case 4: return launch_bf16<DP, 4, 3>(p, st);
+    case 0: return launch_bf16<96, 2, 4>(p, st);
+    case 1: return launch_ws<DP, 128, 3, 3>(p, st);
+    case 2: return launch_ws<DP, 128, 2, 3>(p, st);
+    case 3: return launch_ws<DP, 96, 3, 3>(p, st);
+    case 4: return launch_ws<DP, 64, 4, 4>(p, st);
+    case 5: return launch_ws<DP, 64, 3, 4>(p, st);
+    case 6: return launch_ws<DP, 128, 3, 4>(p, st);
+    case 7: return launch_ws<DP, 128, 2, 2>(p, st);
   }
   return -1;
 }

@@ -1,15 +1,18 @@
-"""K1/K4 (csrc/attn_fwd.cu) at other tiles, against the twins and timed on
-the card, at the sampling path's K1 shapes (4,4096,8,40) and (4,1024,8,80)
-and the training path's K4 shapes (2,4096,8,40) and (2,1024,8,80): builds
-tools/port_attn_tiles.cu (which includes the kernel source) with nvcc,
-prints what ptxas says of every instantiation (registers, spills, wgmma
-serialisation), then calls its five variants a head width (warpgroups a
-block and ring stages: see the .cu) and the shipped dispatch.
+"""K1/K4 (csrc/attn_fwd.cu) in its two designs and at other tiles, against
+the twins and timed on the card, at every D 40 and D 80 shape of the
+kernel table (PERF.md §6): builds tools/port_attn_tiles.cu (which includes
+the kernel source) with nvcc, prints what ptxas says of every
+instantiation (registers, spills, wgmma serialisation), then calls the
+shipped route (`fwd_route`'s choice), each variant (the lock-step design
+and seven ping-pong tilings: see the .cu) and SDPA. The variants at DP 80
+with three consumer warpgroups spill (ptxas says so above the times).
 
-    python tools/port_attn_tiles.py
+    python tools/port_attn_tiles.py [--quick]
 
-Device milliseconds per call: CUDA events around 20 calls queued behind a
-sleep kernel, after 3 warm-up calls.
+`--quick` takes the regional canvas's two rows only. Device milliseconds
+per call: CUDA events around 20 calls queued behind a sleep kernel, after
+3 warm-up calls. Where the twin's fp32 scores would not fit, it is held to
+the first and last 512 query rows.
 """
 import ctypes
 import math
@@ -21,13 +24,28 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 from mixofshow_tpu_torch.ops import _build  # noqa: E402
 from mixofshow_tpu_torch.ops import flash_attention as fl  # noqa: E402
 from mixofshow_tpu_torch.ops import fused_attention as fa  # noqa: E402
 
-VARIANTS = 5
-SHAPES = [('K1', (4, 4096, 8, 40)), ('K1', (4, 1024, 8, 80)),
-          ('K4', (2, 4096, 8, 40)), ('K4', (2, 1024, 8, 80))]
+VARIANTS = 8
+# (kernel, (B, Sq, H, D), Sk, kv_len)
+SHAPES = [('K1', (2, 32768, 8, 40), 32768, 32768),
+          ('K1', (2, 8192, 8, 80), 8192, 8192),
+          ('K1', (4, 4096, 8, 40), 4096, 4096),
+          ('K1', (4, 1024, 8, 80), 1024, 1024),
+          ('K1', (8, 4096, 8, 40), 4096, 4096),
+          ('K1', (8, 1024, 8, 80), 1024, 1024),
+          ('K1', (2, 1000, 8, 40), 1100, 1037),
+          ('K1', (4, 8192, 8, 40), 8192, 8192),
+          ('K1', (4, 2048, 8, 80), 2048, 2048),
+          ('K4', (2, 4096, 8, 40), 4096, 4096),
+          ('K4', (2, 1024, 8, 80), 1024, 1024),
+          ('K4', (4, 4096, 8, 40), 4096, 4096),
+          ('K4', (4, 1024, 8, 80), 1024, 1024)]
+TWIN_BYTES = 8 * 2 ** 30
+TWIN_ROWS = 512
 
 
 def build():
@@ -40,7 +58,8 @@ def build():
         capture_output=True, text=True)
     for line in (r.stdout + r.stderr).splitlines():
         if any(w in line for w in ('error', 'Used', 'spill', 'wgmma',
-                                   'Compiling entry')):
+                                   'Compiling entry', 'setmaxnreg',
+                                   'warning')):
             print(line[:240])
     if r.returncode:
         raise RuntimeError(f'nvcc failed ({r.returncode})')
@@ -73,18 +92,31 @@ def main():
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(0)
     print(torch.cuda.get_device_name(0), flush=True)
-    for kernel, (b, s, h, d) in SHAPES:
-        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev)
-                   .bfloat16() for _ in range(3))
+    quick = '--quick' in sys.argv
+    for kernel, (b, s, h, d), sk, kvl in SHAPES[:2] if quick else SHAPES:
+        q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, sk, h, d, generator=g, device=dev).bfloat16()
+                for _ in range(2))
         flash = kernel == 'K4'
+        rows = None
+        if b * h * s * sk * 4 > TWIN_BYTES:
+            rows = torch.cat([torch.arange(TWIN_ROWS),
+                              torch.arange(s - TWIN_ROWS, s)]).to(dev)
+        qs = q if rows is None else q[:, rows]
         if flash:
-            ref, rlse = fl.flash_fwd_plain(q, k, v)
+            ref, rlse = fl.flash_fwd_plain(qs, k, v)
             shipped = lambda: fl.flash_fwd(q, k, v)  # noqa: E731
+            route = fl.launch_route(q, k, v)
         else:
-            ref = fa.attn_fwd_plain(q, k, v)
-            shipped = lambda: fa.attn_fwd(q, k, v)  # noqa: E731
-        print(f'{kernel} {(b, s, h, d)}: shipped dispatch '
-              f'{ms(shipped):.4f} ms', flush=True)
+            ref = fa.attn_fwd_plain(qs, k, v, kvl)
+            shipped = lambda: fa.attn_fwd(q, k, v, kvl)  # noqa: E731
+            route = fl.launch_route(q, k, v)
+        kt, vt = k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
+        qt = q.transpose(1, 2)
+        sdpa = ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        print(f'{kernel} {(b, s, h, d)} Sk {sk} kv_len {kvl}: shipped '
+              f'route {route} {ms(shipped):.4f} ms, SDPA {sdpa:.4f} ms',
+              flush=True)
         for which in range(VARIANTS):
             o = torch.empty_like(q)
             lse = torch.empty((b, h, s), device=dev) if flash else None
@@ -93,19 +125,21 @@ def main():
                 rc = lib.attn_variant(
                     which, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), None if lse is None else lse.data_ptr(),
-                    b, s, s, h, d, s, *q.stride()[:2], *k.stride()[:2],
+                    b, s, sk, h, d, kvl, *q.stride()[:2], *k.stride()[:2],
                     *v.stride()[:2], *o.stride()[:2], 1.0 / math.sqrt(d),
                     torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f'variant {which}: rc {rc}')
             go()
             torch.cuda.synchronize()
+            got = o if rows is None else o[:, rows]
             # relative to max|twin|, and K4's LSE absolute
-            err = ((o.float() - ref.float()).abs().max().item()
+            err = ((got.float() - ref.float()).abs().max().item()
                    / ref.float().abs().max().item())
             err = f'o {err:.3e} of max|twin|'
             if flash:
-                err += f', lse {(lse - rlse).abs().max().item():.3e}'
+                lg = lse if rows is None else lse[:, :, rows]
+                err += f', lse {(lg - rlse).abs().max().item():.3e}'
             print(f'{kernel} D {d} variant {which}: error {err}, '
                   f'{ms(go):.4f} ms', flush=True)
 
