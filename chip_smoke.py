@@ -175,7 +175,10 @@ line when any fails, or when no CUDA device is visible):
                 heads 40 and 80 wide, 32,768 keys among them at 1024x2048)
                 and the 250 of 160-wide heads lock-step. Prints the load,
                 sampling and save seconds and the peak device memory.
-Phases 5 and 6 also check that no flash kernel launched. Then the INT8_TABLE
+Phases 5 and 6 also check that no flash kernel launched, and print the
+convolutions by input layout (layers.conv2d.layouts) over their two
+requests: every UNet conv of the 100 evals on channels-last input, the
+VAE's and the adapter's NCHW ('other'). Then the INT8_TABLE
 line, one JSON line with the kernels (launches: phases 5 to 9 together, 5q,
 6q, 7b and 7c included; 7d runs in its own process), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
@@ -216,7 +219,7 @@ from mixofshow_tpu_torch.data import PromptDataset
 from mixofshow_tpu_torch.fusion import compose_concepts
 from mixofshow_tpu_torch.fusion.gradient_fusion import layer_kernel
 from mixofshow_tpu_torch.models import (CLIPTextConfig, CLIPTextModel, UNet,
-                                        UNetConfig)
+                                        UNetConfig, layers)
 from mixofshow_tpu_torch.models.lora import flatten_lora, init_lora_tree
 from mixofshow_tpu_torch.models.t2i_adapter import preprocess_adapter_image
 from mixofshow_tpu_torch.models.unet import cross_layer_query_sizes
@@ -1210,6 +1213,18 @@ def phase_wiring(dev):
                 SAMPLING_KERNELS)
 
 
+def conv_layouts(tag, unet, evals):
+    """`layers.conv2d.layouts` since the last reset, checked: the UNet's
+    convs ran `evals` evals on channels-last input (the VAE's and the
+    adapter's stay NCHW, 'other')."""
+    layouts = dict(layers.conv2d.layouts)
+    n = sum(isinstance(m, nn.Conv2d) for m in unet.modules())
+    check(layouts.get('channels_last', 0) == n * evals,
+          f'{tag}: {layouts} conv calls by input layout, expected '
+          f'{n} x {evals} channels-last')
+    return layouts
+
+
 def phase_main(dev, card):
     t0 = time.perf_counter()
     b = zoo.load_models('random:sd15', dev, seed=0, dtype=torch.bfloat16)
@@ -1238,6 +1253,7 @@ def phase_main(dev, card):
     out_submit = pending.result()
     t_submit = time.perf_counter() - t0
     counts = ops.launch_counts()
+    layouts = conv_layouts('main', pipe.unet, 2 * 50)
 
     for name, out in (('__call__', out_call), ('submit', out_submit)):
         check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8,
@@ -1254,7 +1270,7 @@ def phase_main(dev, card):
           f'{t_call:.3f} s ({2 / t_call:.4f} img/s, first request), '
           f'submit().result() {t_submit:.3f} s ({2 / t_submit:.4f} img/s; '
           f'submit() returned after {t_queued:.3f} s); {card}; launches '
-          f'{counts}', flush=True)
+          f'{counts}; conv calls by input layout {layouts}', flush=True)
 
     # the same request with an attention store attached
     store = AttentionStore()
@@ -1332,6 +1348,7 @@ def phase_regional(dev, card):
     t_submit = time.perf_counter() - t0
     counts = ops.launch_counts()
     second = {k: counts[k] - first[k] for k in counts}
+    layouts = conv_layouts('regional', pipe.unet, 2 * 50)
 
     for name, out in (('__call__', out_call), ('submit', out_submit)):
         check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8,
@@ -1350,7 +1367,8 @@ def phase_regional(dev, card):
           f'7.5: __call__ {t_call:.3f} s ({2 / t_call:.4f} img/s, first '
           f'request), submit().result() {t_submit:.3f} s ({2 / t_submit:.4f}'
           f' img/s; submit() returned after {t_queued:.3f} s); {card}; '
-          f'launches per request {first}, {second}', flush=True)
+          f'launches per request {first}, {second}; conv calls by input '
+          f'layout {layouts}', flush=True)
     _quant_requests('regional', lambda mode: RegionallyT2IAdapterPipeline(
         b.unet, b.text_encoder, b.vae, b.tokenizer, dev, torch.bfloat16,
         new_concept_cfg=cfg, concept_embedding=table,

@@ -1,7 +1,9 @@
 """Building blocks over torch modules (port of mixofshow_tpu/models/layers.py).
 
 Conventions:
-  * activations are NCHW; conv weights OIHW; Linear weights (out, in);
+  * conv activations are (B, C, H, W): NCHW in the VAE and the adapter,
+    channels-last inside the UNet eval (models.unet); conv weights OIHW
+    (channels-last in the UNet); Linear weights (out, in);
   * a LoRA leaf is {'down': (r, in), 'up': (out, r)} (the reference's
     LoRALinearLayer layout), applied as y += alpha * up(down(x)) in the
     activation dtype (fp32 trainable leaves are cast on the way, as the JAX
@@ -49,12 +51,29 @@ def dense(x: torch.Tensor, lin: nn.Linear, lora=None, alpha: float = 1.0):
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, lora=None, alpha: float = 1.0):
-    """NCHW conv with the module's own stride/padding. LoRA applies to 1x1
-    convs as a per-pixel dense delta. A quantized conv runs
-    ops.quant.int8_conv, its bias added after."""
+    """(B, C, H, W) conv with the module's own stride/padding; the output
+    keeps x's memory layout. LoRA applies to 1x1 convs as a per-pixel dense
+    delta. A quantized conv runs ops.quant.int8_conv, its bias added after.
+    `conv2d.layouts` counts the calls by x's layout ('channels_last' or
+    'other').
+
+    On the CPU, where the port is held to the JAX package and to its own
+    data-parallel runs, a channels-last conv runs on NCHW copies and hands
+    its output on channels-last: oneDNN's NHWC kernels sum in another
+    order, two to four times further from float64 than its NCHW ones at
+    batch > 1, and are no faster at the tests' sizes."""
+    cl = x.is_contiguous(memory_format=torch.channels_last)
+    layout = 'channels_last' if cl else 'other'
+    conv2d.layouts[layout] = conv2d.layouts.get(layout, 0) + 1
+    weight = conv.weight
+    # an x of both layouts (C or H·W of 1) hands y on as NCHW
+    back = cl and x.is_cpu and not x.is_contiguous()
+    if cl and x.is_cpu:
+        x, weight = x.contiguous(), weight.contiguous()
     wq = conv._buffers.get('wq')
     if wq is None:
-        y = conv(x)
+        y = F.conv2d(x, weight, conv.bias, conv.stride, conv.padding,
+                     conv.dilation, conv.groups)
     else:
         y = int8_conv(x, wq, conv.wscale, conv.stride, conv.padding)
         if conv.bias is not None:
@@ -64,13 +83,20 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, lora=None, alpha: float = 1.0):
         down = lora['down'].to(x.dtype).reshape(r, -1, 1, 1)
         up = lora['up'].to(x.dtype).reshape(-1, r, 1, 1)
         y = y + alpha * F.conv2d(F.conv2d(x, down), up)
-    return y
+    return y.contiguous(memory_format=torch.channels_last) if back else y
+
+
+conv2d.layouts = {}
 
 
 # ----------------------------------------------------------------------- norm
 def _onepass_sums(x):
     """Per-(batch, channel) fp32 (sum, sum of squares) over H×W; the square
-    runs in the input dtype with an fp32 accumulator (JAX 'onepass')."""
+    runs in the input dtype with an fp32 accumulator (JAX 'onepass'). On
+    the CPU a channels-last x is summed from an NCHW copy, in the order the
+    CPU path keeps (see `conv2d`)."""
+    if x.is_cpu:
+        x = x.contiguous()
     s = torch.sum(x, dim=(2, 3), dtype=torch.float32)
     s2 = torch.sum(x * x, dim=(2, 3), dtype=torch.float32)
     return s, s2

@@ -1,4 +1,11 @@
-"""SD1.x UNet2DConditionModel forward as a torch module, NCHW.
+"""SD1.x UNet2DConditionModel forward as a torch module.
+
+NCHW at its boundary, channels-last inside: the eval's activations and
+every conv weight are `torch.channels_last` from conv_in to conv_out, so
+cuDNN runs each convolution on its NHWC kernels with no transposes, and a
+transformer's (B, HW, C) tokens are views of its input map. `forward`
+takes any layout and returns contiguous NCHW for the solver and the VAE,
+whose K8 walks NCHW planes.
 
 Port of mixofshow_tpu/models/unet.py. ED-LoRA specifics:
   * every cross-attention layer has a static index in down→mid→up order (16
@@ -128,6 +135,24 @@ def cross_layer_query_sizes(cfg: UNetConfig, h: int, w: int):
 
 
 # ------------------------------------------------------------------ modules
+@torch.no_grad()
+def channels_last_convs(module: nn.Module, _incompatible_keys=None) -> None:
+    """Lay every Conv2d weight of `module` out channels-last on a 16-byte
+    boundary, in place: a weight laid out otherwise, or a view off that
+    boundary (as tensors carved out of one flat buffer can be), is copied.
+    cuDNN's NHWC kernels read 16-byte vectors; off the boundary a conv falls
+    back to its generic `precomputed_convolve_sgemm`. Also a
+    load_state_dict post hook."""
+    for m in module.modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        w = m.weight.data
+        if not w.is_contiguous(memory_format=torch.channels_last) \
+                or w.data_ptr() % 16:
+            m.weight.data = torch.empty_like(
+                w, memory_format=torch.channels_last).copy_(w)
+
+
 class Resnet(nn.Module):
     def __init__(self, cin, cout, temb_dim, groups, **kw):
         super().__init__()
@@ -243,7 +268,8 @@ class Transformer(nn.Module):
         b, c, h, w = x.shape
         grams = {}
 
-        def tokens(t):  # NCHW -> (B, HW, C), the JAX package's NHWC rows
+        def tokens(t):  # (B, C, H, W) -> (B, HW, C), the JAX package's
+            # NHWC rows: a view of a channels-last map
             return t.permute(0, 2, 3, 1).reshape(b, h * w, c)
 
         gn_out = group_norm(x, self.norm)
@@ -299,7 +325,7 @@ class Transformer(nn.Module):
         hid = hid + ff
         if 'proj_out' in gram_points:
             grams['proj_out'] = gram(hid)
-        hid = hid.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+        hid = hid.reshape(b, h, w, c).permute(0, 3, 1, 2)  # channels-last
         out = conv2d(hid, self.proj_out, maybe(lora, 'proj_out'), alpha) + x
         return out, probs, grams
 
@@ -370,6 +396,12 @@ class UNet(nn.Module):
             self.up_blocks.append(blk)
         self.norm_out = nn.GroupNorm(g, cin, eps=1e-5, **kw)
         self.conv_out = nn.Conv2d(cin, cfg.out_channels, 3, padding=1, **kw)
+        # once here, never per call: under a channels-last input a weight
+        # left NCHW is transposed at every call. copy_-loads keep the
+        # strides and the alignment; a load that assigns tensors gets them
+        # laid out again
+        channels_last_convs(self)
+        self.register_load_state_dict_post_hook(channels_last_convs)
 
     def _transformers(self):
         """(path, module) of every cross-attention transformer, in
@@ -405,10 +437,12 @@ class UNet(nn.Module):
                 fuse_attention=False, return_cross_probs=False,
                 prob_columns=None, remat: bool = False,
                 capture_grams=False):
-        """Predict noise. sample (B, 4, h, w) NCHW; timesteps (B,) or a
-        scalar; encoder_hidden_states (B, 77, C) or layerwise (B, 16, 77, C);
-        `cross_kv` from `cross_attention_kv`; `adapter_features` NCHW maps,
-        one per down block (T2IAdapter); `cross_attn_override` replaces
+        """Predict noise. sample (B, 4, h, w), any layout (made
+        channels-last here); timesteps (B,) or a scalar;
+        encoder_hidden_states (B, 77, C) or layerwise (B, 16, 77, C);
+        `cross_kv` from `cross_attention_kv`; `adapter_features` (B, C, H,
+        W) maps, one per down block (T2IAdapter; channels-last, or each
+        add reads across the layout); `cross_attn_override` replaces
         every cross-attention (see Transformer.forward); `fuse_attention`
         False or 'packed' (see the module docstring); `remat` recomputes
         each transformer in the backward (torch.utils.checkpoint);
@@ -416,9 +450,10 @@ class UNet(nn.Module):
         `return_cross_probs` True (every cross-attention layer) or a set of
         layer indices (only those build a map).
 
-        Returns the prediction, or with `return_cross_probs` or
-        `capture_grams` (prediction, aux): aux['cross_probs'] lists (place,
-        layer_idx, probs (B, heads, Q, 77 or K)) in layer order
+        Returns the prediction (contiguous NCHW), or with
+        `return_cross_probs` or `capture_grams` (prediction, aux):
+        aux['cross_probs'] lists (place, layer_idx, probs (B, heads, Q, 77
+        or K)) in layer order
         (`prob_columns` (B, K) keeps only those key columns);
         aux['grams'] maps each layer_idx to {point: (F, F) fp32 Gram}."""
         cfg = self.cfg
@@ -458,7 +493,8 @@ class UNet(nn.Module):
             idx += 1
             return out
 
-        x = conv2d(sample, self.conv_in)
+        x = conv2d(sample.contiguous(memory_format=torch.channels_last),
+                   self.conv_in)
         residuals = [x]
         for i, blk in enumerate(self.down_blocks):
             blora = maybe(lora, 'down_blocks', i)
@@ -496,7 +532,7 @@ class UNet(nn.Module):
                            blk.upsample)
 
         x = group_norm(x, self.norm_out, act='silu')
-        out = conv2d(x, self.conv_out)
+        out = conv2d(x, self.conv_out).contiguous()
         aux = {}
         if return_cross_probs:
             aux['cross_probs'] = probs_out

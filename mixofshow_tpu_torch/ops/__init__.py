@@ -8,6 +8,8 @@ to XLA.
 `KERNELS` maps each kernel's name to the wrapper that launches it; a
 wrapper's `launches` attribute counts its kernel launches in this process,
 and K1's and K4's `routes` (attn_fwd, flash_fwd) count them by design.
+`reset_launch_counts` also resets `models.layers.conv2d.layouts` (the
+convolutions by input layout).
 """
 from mixofshow_tpu_torch.ops.fused_attention import (attention_block,
                                                      attention_packed,
@@ -28,10 +30,13 @@ KERNELS = {'attn_fwd': attn_fwd, 'gn_spatial_sums': spatial_sums,
 
 
 def reset_launch_counts() -> None:
+    # models.layers imports this package's modules: imported here, not above
+    from mixofshow_tpu_torch.models import layers
     for fn in KERNELS.values():
         fn.launches = 0
         if hasattr(fn, 'routes'):
             fn.routes = {}
+    layers.conv2d.layouts = {}
 
 
 def launch_counts() -> dict:

@@ -101,8 +101,8 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
 
 def int_conv(xq: torch.Tensor, wq: torch.Tensor, stride=1,
              padding=0) -> torch.Tensor:
-    """int32 accumulators (B, O, Ho, Wo) of int8 NCHW `xq` with int8 OIHW
-    `wq`: im2col (zero padding), then `int_mm`."""
+    """int32 accumulators (B, O, Ho, Wo), channels-last, of int8 (B, C, H,
+    W) `xq` with int8 OIHW `wq`: im2col (zero padding), then `int_mm`."""
     b, _, h, w = xq.shape
     o, _, kh, kw = wq.shape
     stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
@@ -119,10 +119,10 @@ def int_conv(xq: torch.Tensor, wq: torch.Tensor, stride=1,
 
 def int8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
               stride=1, padding=0) -> torch.Tensor:
-    """NCHW x int8 OIHW -> NCHW in x's dtype, the activation quantized per
-    image (a conv mixes neighbouring pixels, so a finer scale would break
-    the linearity the int32 accumulation relies on); `int_conv`, one fp32
-    rescale."""
+    """(B, C, H, W) x int8 OIHW -> channels-last (B, O, Ho, Wo) in x's
+    dtype, the UNet's layout, the activation quantized per image (a conv
+    mixes neighbouring pixels, so a finer scale would break the linearity
+    the int32 accumulation relies on); `int_conv`, one fp32 rescale."""
     xq, sx = quantize_activation(x, (1, 2, 3))
     acc = int_conv(xq, wq, stride, padding)
     scale = sx * wscale.float().view(1, -1, 1, 1)
@@ -149,10 +149,11 @@ def quantize_dense(lin: nn.Linear) -> nn.Linear:
 
 @torch.no_grad()
 def quantize_conv(conv: nn.Conv2d) -> nn.Conv2d:
-    """Register int8 `wq` (OIHW) and fp32 `wscale` (O,) beside the conv's
-    weight."""
+    """Register int8 `wq` (OIHW, contiguous whatever the weight's layout,
+    so `int_conv` reads it as (O, I·kh·kw) rows without a copy) and fp32
+    `wscale` (O,) beside the conv's weight."""
     wq, wscale = _quantize_weight(conv.weight, (1, 2, 3))
-    conv.register_buffer('wq', wq, persistent=False)
+    conv.register_buffer('wq', wq.contiguous(), persistent=False)
     conv.register_buffer('wscale', wscale, persistent=False)
     return conv
 

@@ -212,7 +212,8 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
                           region_sketch_weight, height, width, use_cfg,
                           num_images: int = 1):
         """Keypose plus sketch features, each weighted by its map, tiled to
-        `num_images` and doubled for CFG: NCHW, one per down block."""
+        `num_images` and doubled for CFG: (B, C, H, W) channels-last, the
+        UNet's layout, one per down block."""
         with span('adapter', self.device):
             states = []
             for name, adapter, inp, weight, spec in (
@@ -239,7 +240,10 @@ class RegionallyT2IAdapterPipeline(EDLoRAPipeline):
                     f = f * self._upload(wmap)[None, None]
                     total = f if total is None else total + f
                 total = total.repeat_interleave(num_images, 0)
-                merged.append(torch.cat([total, total]) if use_cfg else total)
+                if use_cfg:
+                    total = torch.cat([total, total])
+                merged.append(total.contiguous(
+                    memory_format=torch.channels_last))
             return merged
 
     # ------------------------------------------------------------ sampling

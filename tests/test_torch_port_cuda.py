@@ -834,3 +834,71 @@ def test_flash_fwd_at_the_int8_requests_shapes(dev, b, s, h, d):
         ro, rlse = fl.flash_fwd_plain(q, k, v)
     assert twin_err(o, ro) <= FLASH_BF16_REL
     assert (lse - rlse).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------------------------ channels-last
+def _sdpa_plain(q, k, v, kv_len=None):
+    """attn_fwd_plain's fp32 softmax(q kᵀ/√D) v, through torch's CPU SDPA,
+    which never holds the score matrix (at 32,768 keys the twin's would
+    take 68.7 GB)."""
+    if kv_len is not None and kv_len != k.shape[1]:
+        raise ValueError('no kv_len mask here')
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *(t.float().transpose(1, 2) for t in (q, k, v)))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.fixture(scope='module')
+def sd15_unet_cpu():
+    """SD1.5's UNet, seeded, fp32 on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    from mixofshow_tpu_torch.models import UNet, UNetConfig
+    from mixofshow_tpu_torch.models.layers import seeded_init_
+    with torch.no_grad():
+        return seeded_init_(UNet(UNetConfig.sd15(), 'cpu'),
+                            torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.parametrize('latent', [(2, 4, 128, 256), (8, 4, 64, 64)],
+                         ids=['2x_canvas', 'sample_512'])
+def test_sd15_eval_runs_channels_last(dev, sd15_unet_cpu, latent,
+                                      monkeypatch):
+    """One bf16 eval at SD1.5 width on the sampling pipelines' route (the
+    regional cell's 2x canvas, CFG on one image; the sampling cell's 4
+    prompts with CFG): every conv on channels-last input, no cuDNN layout
+    transpose in the eval (nchwToNhwc / nhwcToNchw would mean a weight or
+    an activation transposed per call), contiguous NCHW out, and within
+    TOL[bf16] relative L2 of the fp32 CPU eval of the same weights."""
+    from torch import nn
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixofshow_tpu_torch.models import layers
+    cpu = sd15_unet_cpu
+    gpu = copy.deepcopy(cpu).to(dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(latent, generator=g)
+    ehs = torch.randn(latent[0], 77, 768, generator=g)
+    t = torch.tensor(500)
+    args = (x.to(dev, torch.bfloat16), t.to(dev),
+            ehs.to(dev, torch.bfloat16))
+    with torch.inference_mode():
+        gpu(*args, fuse_attention='packed')
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = gpu(*args, fuse_attention='packed')
+            torch.cuda.synchronize()
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    n_convs = sum(isinstance(m, nn.Conv2d) for m in gpu.modules())
+    assert layers.conv2d.layouts == {'channels_last': n_convs}
+    assert not [k for k in kernels if 'nchwToNhwc' in k or 'nhwcToNchw' in k]
+    assert out.shape == latent and out.is_contiguous()
+    monkeypatch.setattr(fa, 'attn_fwd_plain', _sdpa_plain)
+    with torch.inference_mode():
+        ref = cpu(x, t, ehs, fuse_attention='packed')
+    rel = ((out.float().cpu() - ref).norm() / ref.norm()).item()
+    assert rel <= TOL[torch.bfloat16]
