@@ -654,8 +654,8 @@ def phase_kernels(dev):
         q, k, v = (t.view(b, s, 1, c) for t in fa._gemm_grouped(qkv))
         o = torch.empty_like(q)
         parts = {'q/k/v GEMM': cuda_ms(lambda: fa._gemm_grouped(qkv)),
-                 'core': cuda_ms(lambda: fa._launch_attn(q, k, v, o, s,
-                                                         1.0)),
+                 'core': cuda_ms(lambda: fl.launch_fwd(q, k, v, o,
+                                                       scale=1.0)),
                  'out GEMM': cuda_ms(lambda: fa._gemm_grouped(
                      [(o.view(-1, c), w[3], bias[3], 1.0)]))}
         print(f'[kernels] attn_block (B,S,C)=({b},{s},512) heads=1 with '

@@ -1,16 +1,16 @@
 // attn_fwd: attention forward, softmax(q kᵀ · scale) v, over the natural
 // (B, S, H, D) layout, with key columns >= kv_len masked.
 //
-// Replaces two TPU kernels:
+// Replaces two TPU kernels, both through the one entry point mos_attn_fwd
+// (at the end of this file):
 //   * mixofshow_tpu/ops/fused_attention.py `_packed_fwd_kernel` (K1,
-//     launched by `_packed_flash`, wrapped by `attention_packed`):
-//     entry point mos_attn_fwd;
+//     launched by `_packed_flash`, wrapped by `attention_packed`);
 //   * mixofshow_tpu/ops/flash_attention.py `_fwd_kernel` (K4, the forward
-//     of the differentiable `flash_attention`): entry point mos_flash_fwd,
-//     which also stores the per-row log-sum-exp (B, H, Sq) in fp32 that the
-//     backward kernels (flash_bwd_dkv.cu, flash_bwd_dq.cu) recompute P from.
-//     The TPU kernel's 8-lane LSE replication was a VMEM tiling artifact and
-//     is not copied.
+//     of the differentiable `flash_attention`), given an LSE buffer: it also
+//     stores the per-row log-sum-exp (B, H, Sq) in fp32 that the backward
+//     kernels (flash_bwd_dkv.cu, flash_bwd_dq.cu) recompute P from. The TPU
+//     kernel's 8-lane LSE replication was a VMEM tiling artifact and is not
+//     copied.
 // Both fold the softmax scale into q before the bf16 rounding,
 // q̃ = bf16(q · scale), as both TPU kernels do; K3's core passes scale 1.
 //
@@ -31,8 +31,8 @@
 // is one instruction a logit; exp2f adds more to keep them.
 //
 // Designs (bf16, D <= 160; fwd_route in ops/flash_attention.py picks one
-// per launch and passes it to the entry points as a Route, which they
-// refuse where the arguments do not allow it):
+// per launch and passes it to the entry point as a Route, which it
+// refuses where the arguments do not allow it):
 //   * ping-pong (attn_fwd_bf16_kernel_ws), heads up to 80 wide that TMA can
 //     read (16 B aligned bases, 16 B multiples for the strides): a block
 //     owns BQ = 64·NC query rows of one (batch, head) and has NC consumer
@@ -753,35 +753,27 @@ int dispatch(const AttnParams& p, int dtype, int route, cudaStream_t st) {
 
 }  // namespace
 
-// Returns a cudaError_t code (0 on success), or -1 for a head width or a
-// route the kernel does not take (D > 512; see Route). Strides are in
-// elements; within a token the heads are contiguous (head stride D, element
-// stride 1).
+// The one entry point of K1, K3's core and K4. Returns a cudaError_t code
+// (0 on success), or -1 for arguments the kernel does not take: without an
+// LSE (K1, K3's core) heads up to 512 wide and the keys >= kv_len masked,
+// 1 <= kv_len <= Sk; with one (K4) heads up to 160 wide, every key read
+// (kv_len == Sk), and the per-row log-sum-exp stored to `lse`, contiguous
+// (B, H, Sq) fp32; and -1 for a route the arguments do not allow (see
+// Route). Strides are in elements; within a token the heads are contiguous
+// (head stride D, element stride 1).
 extern "C" int mos_attn_fwd(const void* q, const void* k, const void* v,
-                            void* o, int B, int Sq, int Sk, int H, int D,
-                            int kv_len, long long q_sb, long long q_ss,
-                            long long k_sb, long long k_ss, long long v_sb,
-                            long long v_ss, long long o_sb, long long o_ss,
-                            float scale, int dtype, int route,
-                            void* stream) {
+                            void* o, float* lse, int B, int Sq, int Sk,
+                            int H, int D, int kv_len, long long q_sb,
+                            long long q_ss, long long k_sb, long long k_ss,
+                            long long v_sb, long long v_ss, long long o_sb,
+                            long long o_ss, float scale, int dtype,
+                            int route, void* stream) {
   AttnParams p{q, k, v, o, B, Sq, Sk, H, D, kv_len,
-               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, nullptr};
-  if (D < 1 || D > 512 || kv_len < 1 || kv_len > Sk) return -1;
-  return dispatch<false>(p, dtype, route, static_cast<cudaStream_t>(stream));
-}
-
-// K4: the same over all Sk keys, scale folded into q, and the LSE stored
-// to `lse`, contiguous (B, H, Sq) fp32. Returns -1 for D > 160 or a route
-// the arguments do not allow.
-extern "C" int mos_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, float* lse, int B, int Sq, int Sk,
-                             int H, int D, long long q_sb, long long q_ss,
-                             long long k_sb, long long k_ss, long long v_sb,
-                             long long v_ss, long long o_sb, long long o_ss,
-                             float scale, int dtype, int route,
-                             void* stream) {
-  AttnParams p{q, k, v, o, B, Sq, Sk, H, D, Sk,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, lse};
-  if (D < 1 || D > 160 || Sk < 1) return -1;
-  return dispatch<true>(p, dtype, route, static_cast<cudaStream_t>(stream));
+  if (D < 1 || kv_len < 1 || kv_len > Sk) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lse == nullptr)
+    return D > 512 ? -1 : dispatch<false>(p, dtype, route, st);
+  if (D > 160 || kv_len != Sk) return -1;
+  return dispatch<true>(p, dtype, route, st);
 }

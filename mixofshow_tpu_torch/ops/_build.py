@@ -34,15 +34,13 @@ DTYPE_F32 = 0
 DTYPE_BF16 = 1
 
 _c = ctypes
-_ATTN_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6 + [_c.c_longlong] * 8
+_ATTN_ARGS = ([_c.c_void_p] * 5 + [_c.c_int] * 6 + [_c.c_longlong] * 8
               + [_c.c_float, _c.c_int, _c.c_int, _c.c_void_p])
 _GEMM_ARGS = ([_c.c_int] + [_c.POINTER(_c.c_void_p)] * 4
               + [_c.POINTER(_c.c_int)] * 3 + [_c.POINTER(_c.c_longlong)] * 2
               + [_c.POINTER(_c.c_float), _c.c_int, _c.c_void_p])
 _REGION_ARGS = ([_c.c_void_p] * 6 + [_c.c_int] * 7
                 + [_c.POINTER(_c.c_int), _c.c_float, _c.c_int, _c.c_void_p])
-_FLASH_FWD_ARGS = ([_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 8
-                   + [_c.c_float, _c.c_int, _c.c_int, _c.c_void_p])
 _FLASH_DKV_ARGS = ([_c.c_void_p] * 8 + [_c.c_int] * 5
                    + [_c.c_float, _c.c_int, _c.c_void_p])
 _FLASH_DQ_ARGS = ([_c.c_void_p] * 7 + [_c.c_int] * 5
@@ -119,8 +117,6 @@ def cuda_lib() -> ctypes.CDLL:
     lib.mos_gemm_grouped.restype = ctypes.c_int
     lib.mos_region_attn.argtypes = _REGION_ARGS
     lib.mos_region_attn.restype = ctypes.c_int
-    lib.mos_flash_fwd.argtypes = _FLASH_FWD_ARGS
-    lib.mos_flash_fwd.restype = ctypes.c_int
     lib.mos_flash_bwd_dkv.argtypes = _FLASH_DKV_ARGS
     lib.mos_flash_bwd_dkv.restype = ctypes.c_int
     lib.mos_flash_bwd_dq.argtypes = _FLASH_DQ_ARGS

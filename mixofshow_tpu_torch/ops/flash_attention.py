@@ -3,10 +3,9 @@
 Port of mixofshow_tpu/ops/flash_attention.py, the `jax.custom_vjp`
 `flash_attention` over three TPU kernels:
 
-  * `flash_fwd` (K4, `mos_flash_fwd` in csrc/attn_fwd.cu, the wgmma kernel
-    it shares with K1) replaces `_fwd_kernel`: attention forward with an
-    online softmax that also stores the per-row log-sum-exp, (B, H, Sq)
-    fp32;
+  * `flash_fwd` (K4, csrc/attn_fwd.cu, the wgmma kernel it shares with
+    K1) replaces `_fwd_kernel`: attention forward with an online softmax
+    that also stores the per-row log-sum-exp, (B, H, Sq) fp32;
   * `flash_bwd_dkv` (K5, csrc/flash_bwd_dkv.cu) replaces `_bwd_dkv_kernel`:
     dK and dV, one block per 128 keys streaming the query tiles;
   * `flash_bwd_dq` (K6, csrc/flash_bwd_dq.cu) replaces `_bwd_dq_kernel`:
@@ -31,10 +30,11 @@ csrc/attn_fwd.cu has two bf16 designs: the warp-specialised ping-pong
 kernel (a TMA producer warp, consumer warpgroups taking turns at the tensor
 cores) for heads up to 80 wide, and the lock-step one for wider heads and
 for inputs TMA cannot read. `fwd_route`, a pure function of what the inputs
-show, picks the design of every K1 and K4 launch; the wrapper passes it to
-the entry point, which refuses (returns -1 for) a design the arguments do
-not allow. `flash_fwd.routes` (and `attn_fwd.routes`) count launches by
-design.
+show, picks the design of every K1 and K4 launch. `launch_fwd` is the one
+launcher of that kernel, for K1, K3's core and K4: it checks the arguments,
+takes the design and passes it to the entry point, which refuses (returns
+-1 for) a design the arguments do not allow. `flash_fwd.routes` (and
+`attn_fwd.routes`) count launches by design.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ import torch
 from mixofshow_tpu_torch.ops import _build
 
 MAX_HEAD_DIM = 160  # SD1.x's widest head
+WIDE_MAX_HEAD_DIM = 512  # without an LSE: csrc/attn_wide.cu past 160
 
 # the designs of csrc/attn_fwd.cu's forward, in the order of its Route codes:
 # the fp32 SIMT kernel, the bf16 lock-step and ping-pong wgmma kernels, and
@@ -94,6 +95,69 @@ def launch_route(q, k, v, route=None) -> str:
 def count_route(wrapper, route: str) -> None:
     """One launch of `wrapper` on `route` in its `routes` counter."""
     wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
+
+
+def _check_shapes(what: str, limit: int, q, k, v, *rest) -> None:
+    """(B, S, H, D) q, k and v of one batch, head count and head width up
+    to `limit`, and `rest` shaped as q."""
+    shape, ks = q.shape, k.shape
+    b, sq, h, d = shape
+    if ks != v.shape or ks[0] != b or ks[2:] != (h, d) \
+            or any(t.shape != shape for t in rest):
+        raise ValueError(f'shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}'
+                         f' v{tuple(v.shape)} '
+                         f'{[tuple(t.shape) for t in rest]}')
+    if not 1 <= d <= limit:
+        raise ValueError(f'{what} takes head dim <= {limit}, got {d}')
+
+
+def _check_stats(b: int, h: int, sq: int, **stats) -> None:
+    for name, t in stats.items():
+        if t.dtype != torch.float32 or t.shape != (b, h, sq) \
+                or not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous fp32 '
+                             f'({b}, {h}, {sq}), got {t.dtype} '
+                             f'{tuple(t.shape)}')
+
+
+def launch_fwd(q, k, v, out, lse=None, kv_len=None, scale=None,
+               route=None) -> str:
+    """Launch csrc/attn_fwd.cu's forward into `out`, every argument checked
+    first, on (B, S, H, D) views whose heads are contiguous within a token
+    (head stride D, element stride 1). Without `lse` (K1, K3's core) heads
+    up to 512 wide and the keys >= kv_len masked; with it (K4) heads up to
+    160 wide, every key read, and the per-row log-sum-exp stored to `lse`,
+    contiguous (B, H, Sq) fp32. The logits are scaled by `scale` (default
+    1/√D). Returns the design launched: `route` (see `launch_route`), or
+    `fwd_route`'s choice."""
+    what, limit = (('attn_fwd', WIDE_MAX_HEAD_DIM) if lse is None
+                   else ('flash_fwd', MAX_HEAD_DIM))
+    _check_shapes(what, limit, q, k, v, out)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    lo = 1 if lse is None else max(sk, 1)   # K4 reads every key
+    if not lo <= kv_len <= sk:
+        raise ValueError(f'kv_len {kv_len} outside [{lo}, {sk}]')
+    strides = [t.stride() for t in (q, k, v, out)]
+    for st in strides:
+        if st[3] != 1 or st[2] != d:
+            raise ValueError(f'{what} needs heads contiguous within a token '
+                             f'(strides {st})')
+    if lse is not None:
+        _check_stats(b, h, sq, lse=lse)
+    code = _build.dtype_code(q, k, v, out)
+    route = launch_route(q, k, v, route)
+    lib = _build.cuda_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.mos_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, h, d, kv_len,
+            *[st[i] for st in strides for i in (0, 1)],
+            1.0 / math.sqrt(d) if scale is None else scale, code,
+            ROUTES.index(route), _build.stream(q))
+    _build.check(rc, f'{what} ({route})')
+    return route
 
 
 def flash_attention_supported(sq: int, sk: int, d: int) -> bool:
@@ -161,56 +225,31 @@ def flash_bwd_plain(q, k, v, do, lse, dvec):
 
 
 # ----------------------------------------------------------------- wrappers
-def _check(q, k, v, *rest, contiguous: bool):
-    b, sq, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) \
-            or any(t.shape != q.shape for t in rest):
-        raise ValueError(f'shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}'
-                         f' v{tuple(v.shape)} '
-                         f'{[tuple(t.shape) for t in rest]}')
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f'flash attention takes head dim <= {MAX_HEAD_DIM},'
-                         f' got {d}')
-    for t in (q, k, v, *rest):
-        if contiguous and not t.is_contiguous():
+def _check_bwd(q, k, v, do, lse, dvec):
+    """The backward kernels' arguments: contiguous (B, S, H, D) tensors and
+    contiguous fp32 (B, H, Sq) statistics. Returns their dtype code."""
+    _check_shapes('flash attention', MAX_HEAD_DIM, q, k, v, do)
+    for t in (q, k, v, do):
+        if not t.is_contiguous():
             raise ValueError('flash backward needs contiguous (B, S, H, D) '
                              f'tensors (strides {t.stride()})')
-        if t.stride(3) != 1 or t.stride(2) != d:
-            raise ValueError('flash attention needs heads contiguous within '
-                             f'a token (strides {t.stride()})')
-    return _build.dtype_code(q, k, v, *rest)
-
-
-def _check_stats(lse, dvec, b, h, sq):
-    for t in (lse, dvec):
-        if t.dtype != torch.float32 or t.shape != (b, h, sq) \
-                or not t.is_contiguous():
-            raise ValueError(f'lse and dvec must be contiguous fp32 '
-                             f'({b}, {h}, {sq}), got {t.dtype} '
-                             f'{tuple(t.shape)}')
+    b, sq, h, _ = q.shape
+    _check_stats(b, h, sq, lse=lse, dvec=dvec)
+    return _build.dtype_code(q, k, v, do)
 
 
 def flash_fwd(q, k, v, *, _route=None):
     """Attention forward over (B, S, H, D) -> (o (B, Sq, H, D), lse (B, H,
     Sq) fp32). K4: CUDA tensors (fp32 or bf16, heads contiguous within a
-    token) launch mos_flash_fwd on the design `fwd_route` picks (`_route`
-    names one instead, for tests); CPU tensors run `flash_fwd_plain`."""
+    token) launch csrc/attn_fwd.cu through `launch_fwd` on the design
+    `fwd_route` picks (`_route` names one instead, for tests); CPU tensors
+    run `flash_fwd_plain`."""
     if _build.device_type(q, k, v) == 'cpu':
         return flash_fwd_plain(q, k, v)
-    code = _check(q, k, v, contiguous=False)
-    b, sq, h, d = q.shape
-    route = launch_route(q, k, v, _route)
+    b, sq, h, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.cuda_lib()
-    with torch.cuda.device(q.device):
-        rc = lib.mos_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, k.shape[1], h, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            1.0 / math.sqrt(d), code, ROUTES.index(route), _build.stream(q))
-    _build.check(rc, f'flash_fwd ({route})')
+    route = launch_fwd(q, k, v, out, lse, route=_route)
     flash_fwd.launches += 1
     count_route(flash_fwd, route)
     return out, lse
@@ -225,9 +264,8 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec):
     csrc/flash_bwd_dkv.cu; CPU tensors run `flash_bwd_dkv_plain`."""
     if _build.device_type(q, k, v, do, lse, dvec) == 'cpu':
         return flash_bwd_dkv_plain(q, k, v, do, lse, dvec)
-    code = _check(q, k, v, do, contiguous=True)
+    code = _check_bwd(q, k, v, do, lse, dvec)
     b, sq, h, d = q.shape
-    _check_stats(lse, dvec, b, h, sq)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.cuda_lib()
     with torch.cuda.device(q.device):
@@ -249,9 +287,8 @@ def flash_bwd_dq(q, k, v, do, lse, dvec):
     csrc/flash_bwd_dq.cu; CPU tensors run `flash_bwd_dq_plain`."""
     if _build.device_type(q, k, v, do, lse, dvec) == 'cpu':
         return flash_bwd_dq_plain(q, k, v, do, lse, dvec)
-    code = _check(q, k, v, do, contiguous=True)
+    code = _check_bwd(q, k, v, do, lse, dvec)
     b, sq, h, d = q.shape
-    _check_stats(lse, dvec, b, h, sq)
     dq = torch.empty_like(q)
     lib = _build.cuda_lib()
     with torch.cuda.device(q.device):

@@ -46,11 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from mixofshow_tpu_torch.ops import _build
-from mixofshow_tpu_torch.ops.flash_attention import (ROUTES, count_route,
-                                                     launch_route, scaled_q)
+from mixofshow_tpu_torch.ops.flash_attention import (WIDE_MAX_HEAD_DIM,
+                                                     count_route, launch_fwd,
+                                                     scaled_q)
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 512
 
 
 # ----------------------------------------------------------- plain versions
@@ -84,41 +84,6 @@ def attention_block_plain(x, ctx, wq, wk, wv, wo, bias, heads: int,
 
 
 # ------------------------------------------------------------------ launches
-def _launch_attn(q, k, v, out, kv_len: int, scale: Optional[float] = None,
-                 route: Optional[str] = None) -> str:
-    """Launch csrc/attn_fwd.cu on (B, S, H, D) views whose heads are
-    contiguous within a token (head stride D, element stride 1); the logits
-    are scaled by `scale` (default 1/√D). Returns the design launched:
-    `route`, or `flash_attention.fwd_route`'s choice."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) \
-            or out.shape != q.shape:
-        raise ValueError(f'shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}'
-                         f' v{tuple(v.shape)} out{tuple(out.shape)}')
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f'attn_fwd takes head dim <= {MAX_HEAD_DIM}, got {d}')
-    if not 1 <= kv_len <= sk:
-        raise ValueError(f'kv_len {kv_len} outside [1, {sk}]')
-    for t in (q, k, v, out):
-        if t.stride(3) != 1 or t.stride(2) != d:
-            raise ValueError('attn_fwd needs heads contiguous within a token '
-                             f'(strides {t.stride()})')
-    code = _build.dtype_code(q, k, v, out)
-    route = launch_route(q, k, v, route)
-    lib = _build.cuda_lib()
-    with torch.cuda.device(q.device):
-        rc = lib.mos_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, h, d, kv_len,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            1.0 / math.sqrt(d) if scale is None else scale, code,
-            ROUTES.index(route), _build.stream(q))
-    _build.check(rc, f'attn_fwd ({route})')
-    return route
-
-
 _GEMM_COLUMNS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
                  + (ctypes.c_longlong,) * 2 + (ctypes.c_float,))
 
@@ -174,7 +139,7 @@ def attn_fwd(q, k, v, kv_len: Optional[int] = None, *, _route=None):
     if _build.device_type(q, k, v) == 'cpu':
         return attn_fwd_plain(q, k, v, kv_len)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    route = _launch_attn(q, k, v, out, kv_len, route=_route)
+    route = launch_fwd(q, k, v, out, kv_len=kv_len, route=_route)
     attn_fwd.launches += 1
     count_route(attn_fwd, route)
     return out
@@ -217,15 +182,15 @@ def attention_block(x, ctx, wq, wk, wv, wo, bias, heads: int,
     if c % heads:
         raise ValueError(f'{heads} heads do not divide width {c}')
     d = c // heads
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f'attention_block takes head dim <= {MAX_HEAD_DIM},'
-                         f' got {d}')
+    if d > WIDE_MAX_HEAD_DIM:
+        raise ValueError(f'attention_block takes head dim <= '
+                         f'{WIDE_MAX_HEAD_DIM}, got {d}')
     x2, c2 = x.reshape(b * sq, c), ctx.reshape(b * sk, ctx.shape[-1])
     q, k, v = _gemm_grouped([(x2, wq, bias_q, 1.0 / math.sqrt(d)),
                              (c2, wk, bias_k, 1.0), (c2, wv, bias_v, 1.0)])
     q, k, v = (t.view(b, -1, heads, d) for t in (q, k, v))
     o = torch.empty_like(q)
-    _launch_attn(q, k, v, o, sk, scale=1.0)
+    launch_fwd(q, k, v, o, scale=1.0)
     y, = _gemm_grouped([(o.view(b * sq, c), wo, bias, 1.0)])
     attention_block.launches += 1
     return y.view(b, sq, c)

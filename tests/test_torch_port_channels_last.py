@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch import nn
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import lora as jlora
 from mixofshow_tpu.models import unet as junet
 from mixofshow_tpu.zoo import load_models as jload

@@ -12,6 +12,13 @@ twin's largest entry (see ATTN_BF16_REL), the bf16 flash kernels 2e-2 of it
 (see FLASH_BF16_REL); fp32 kernels 1e-5 (the flash kernels 1e-4: their
 sums run over up to 2048 keys in another order); fp32 sums relative 1e-4
 of the sum of magnitudes.
+
+Unlike the port's CPU test files, this one does not import
+tests/torch_port_threads.py: run alone on the card's host, its CPU
+references (fp32 SD1.5 evals up to 1024x2048) need that host's threads
+(the whole file took 647 s on one torch thread against 180 s on the
+default, on an H100 host with 8 cores). Under tier-1 it only skips, and
+the other files set the workers' one thread.
 """
 import copy
 

@@ -17,6 +17,7 @@ import torch
 import yaml
 from PIL import Image
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.convert.delta_io import load_edlora_delta
 from mixofshow_tpu.convert.diffusers_import import convert_edlora_delta
 from mixofshow_tpu.data import DataLoader as JLoader
@@ -301,24 +302,18 @@ def test_cli_data_parallel_two_ranks(tmp_path):
         ymls[world] = tmp_path / f'train{world}.yml'
         ymls[world].write_text(yaml.safe_dump(opt))
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # the ranks' one thread: the same sums
-    try:
-        _, one, _ = train_edlora.main(['-opt', str(ymls[1]), '--device',
-                                       'cpu'])
-        delta = tmp_path / 'train1' / 'models' / 'edlora_model-latest.pth'
-        ctx = ddp.spawn(2, ddp.cli_rank,
-                        ['-opt', str(ymls[2]), '--device', 'cpu'],
-                        ['-opt', _sweep_yml(tmp_path, 'sweep2', delta,
-                                            str(tmp_path / 'prompts.txt')),
-                         '--device', 'cpu'], str(tmp_path),
-                        ddp.free_port())
-        test_edlora.main(['-opt', _sweep_yml(
-            tmp_path, 'sweep1', delta, str(tmp_path / 'prompts.txt')),
-            '--device', 'cpu'])
-        ddp.join(ctx)
-    finally:
-        torch.set_num_threads(threads)
+    # one torch thread here as in the ranks: the same sums
+    _, one, _ = train_edlora.main(['-opt', str(ymls[1]), '--device', 'cpu'])
+    delta = tmp_path / 'train1' / 'models' / 'edlora_model-latest.pth'
+    ctx = ddp.spawn(2, ddp.cli_rank,
+                    ['-opt', str(ymls[2]), '--device', 'cpu'],
+                    ['-opt', _sweep_yml(tmp_path, 'sweep2', delta,
+                                        str(tmp_path / 'prompts.txt')),
+                     '--device', 'cpu'], str(tmp_path), ddp.free_port())
+    test_edlora.main(['-opt', _sweep_yml(
+        tmp_path, 'sweep1', delta, str(tmp_path / 'prompts.txt')),
+        '--device', 'cpu'])
+    ddp.join(ctx)
 
     ranks = [torch.load(tmp_path / f'cli{r}.pt', weights_only=True)
              for r in range(2)]

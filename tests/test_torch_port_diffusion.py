@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.diffusion import DPMSolverMultistep as JSolver
 from mixofshow_tpu.diffusion.ddpm import make_betas as jbetas
 from mixofshow_tpu_torch.diffusion import DPMSolverMultistep as PSolver

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import layers as jlayers
 from mixofshow_tpu.ops import flash_attention as jflash
 from mixofshow_tpu_torch import ops

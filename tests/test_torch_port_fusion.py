@@ -28,6 +28,7 @@ import safetensors.numpy
 import safetensors.torch
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.convert import delta_io as jdelta_io
 from mixofshow_tpu.convert import diffusers_export as jexport
 from mixofshow_tpu.convert import diffusers_import as jimport

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import clip as jclip
 from mixofshow_tpu.models import layers as jlayers
 from mixofshow_tpu.models import lora as jlora

@@ -13,11 +13,13 @@ import pytest
 import torch
 import torch.utils.cpp_extension as cpp
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.ops import fused_attention as jfa
 from mixofshow_tpu.ops import gn_stats as jgn
 from mixofshow_tpu_torch import ops
 from mixofshow_tpu_torch.models import layers
 from mixofshow_tpu_torch.ops import _build
+from mixofshow_tpu_torch.ops import flash_attention as pfl
 from mixofshow_tpu_torch.ops import fused_attention as pfa
 from mixofshow_tpu_torch.ops import gn_stats as pgn
 from mixofshow_tpu_torch.ops import region_attention as pra
@@ -166,12 +168,7 @@ def test_attn_fwd_plain_bf16_matches_packed_flash(d):
             b, s, h * dp)
     want = jfa._packed_flash(packed(q), packed(k), packed(v), h, d, s)
     want = np.asarray(want.astype(jnp.float32)).reshape(b, s, h, dp)[..., :d]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        got = pfa.attn_fwd(q, k, v)
-    finally:
-        torch.set_num_threads(threads)
+    got = pfa.attn_fwd(q, k, v)
     assert got.dtype == torch.bfloat16
     assert np.abs(got.float().numpy() - want).max() <= 1.5e-3
 
@@ -239,13 +236,17 @@ _T = _zeros(1, 8, 16, 2).transpose(2, 3)
 _M = _zeros(1, 2, 4, 6, device='meta')
 _W = _zeros(8, 8)
 LAUNCH_CHECKS = {
-    'head dim': (lambda: pfa._launch_attn(*[_zeros(1, 8, 1, 520)] * 4, 8),
-                 ValueError, 'head dim'),
-    'kv_len': (lambda: pfa._launch_attn(_Q, _Q, _Q, _Q, 0), ValueError,
+    'head dim': (lambda: pfl.launch_fwd(*[_zeros(1, 8, 1, 520)] * 4,
+                                        kv_len=8), ValueError, 'head dim'),
+    'kv_len': (lambda: pfl.launch_fwd(_Q, _Q, _Q, _Q, kv_len=0), ValueError,
                'kv_len'),
-    'strides': (lambda: pfa._launch_attn(_T, _T, _T, _T, 8), ValueError,
+    'strides': (lambda: pfl.launch_fwd(_T, _T, _T, _T, kv_len=8), ValueError,
                 'contiguous'),
-    'dtype': (lambda: pfa._launch_attn(*[_Q.half()] * 4, 8), TypeError, None),
+    'dtype': (lambda: pfl.launch_fwd(*[_Q.half()] * 4, kv_len=8), TypeError,
+              None),
+    'K4 head dim': (lambda: pfl.launch_fwd(*[_zeros(1, 8, 1, 168)] * 4,
+                                           _zeros(1, 1, 8)), ValueError,
+                    'head dim <= 160'),
     'one device': (lambda: pfa.attn_fwd(_Q, _Q.to('meta'), _Q), ValueError,
                    'one device'),
     'sums device': (lambda: pgn.spatial_sums(_M), ValueError,

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import torch_port_ddp as ddp
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import init_clip_text, init_unet, init_vae
 from mixofshow_tpu.parallel import make_mesh as jmake_mesh
 from mixofshow_tpu.parallel import shard_batch as jshard_batch
@@ -87,15 +88,10 @@ def runs(tmp_path_factory):
         {'name': 'fault', 'batches': batches[:3], 'draws': draws,
          'trainer': {'emb_norm_threshold': THRESHOLD}, 'fault': True}]
     ctx = ddp.spawn(2, ddp.train_rank, str(root), str(mods), scenarios)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = {sc['name']: ddp.run_steps(
-            ddp.build_trainer(str(mods), None, **sc['trainer']),
-            sc['batches'], sc.get('accum', 1), sc.get('draws'))
-            for sc in scenarios[:2]}
-    finally:
-        torch.set_num_threads(threads)
+    one = {sc['name']: ddp.run_steps(
+        ddp.build_trainer(str(mods), None, **sc['trainer']),
+        sc['batches'], sc.get('accum', 1), sc.get('draws'))
+        for sc in scenarios[:2]}
     jgrads = _jax_grads(params, batches[0], jax.random.PRNGKey(0))
     ddp.join(ctx)
     ranks = [torch.load(root / f'rank{r}.pt', weights_only=False)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import torch_port_ddp as ddp
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu_torch import zoo
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,14 +51,9 @@ def runs(tmp_path_factory):
                   'accum': sc.get('accum', 1), 'trainer': sc['trainer']}
                  for sc in SCENARIOS]
     ctx = ddp.spawn(WORLD, ddp.train_rank, str(root), str(mods), scenarios)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = {sc['name']: ddp.run_steps(
-            ddp.build_trainer(str(mods), None, **sc['trainer']),
-            sc['batches'], sc['accum']) for sc in scenarios}
-    finally:
-        torch.set_num_threads(threads)
+    one = {sc['name']: ddp.run_steps(
+        ddp.build_trainer(str(mods), None, **sc['trainer']),
+        sc['batches'], sc['accum']) for sc in scenarios}
     ddp.join(ctx)
     ranks = [torch.load(root / f'rank{r}.pt', weights_only=False)
              for r in range(WORLD)]

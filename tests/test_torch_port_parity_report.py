@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.convert import diffusers_import as jimport
 from mixofshow_tpu.zoo import load_models as jload
 from mixofshow_tpu.zoo import tiny_configs as jax_tiny_configs

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import lora as jlora
 from mixofshow_tpu.zoo import load_models as jload
 from mixofshow_tpu_torch import zoo

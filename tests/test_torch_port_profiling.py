@@ -6,6 +6,7 @@ import json
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.utils.profiling import StepTimer as JStepTimer
 from mixofshow_tpu_torch.utils.profiling import StepTimer, trace
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models.unet import \
     cross_layer_query_sizes as jcross_layer_query_sizes
 from mixofshow_tpu.pipelines import EDLoRAPipeline as JPipeline

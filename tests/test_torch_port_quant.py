@@ -38,6 +38,7 @@ import torch
 from PIL import Image
 from torch import nn
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import layers as jlayers
 from mixofshow_tpu.models.t2i_adapter import init_t2i_adapter
 from mixofshow_tpu.ops import quant as jq
@@ -60,17 +61,6 @@ from mixofshow_tpu_torch.pipelines import (EDLoRAPipeline,
 from mixofshow_tpu_torch.text import CLIPTokenizer
 
 PIPE_ATOL = {'int8': 1e-2, 'int8+conv': 5e-2}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tier-1 run shares the CPU between its
-    workers, and these tiny graphs lose more to oversubscription than they
-    gain from threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_activation(x, axes):

@@ -18,6 +18,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import t2i_adapter as jt2i
 from mixofshow_tpu.models import unet as junet
 from mixofshow_tpu.ops import region_attention as jra

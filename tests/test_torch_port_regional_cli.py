@@ -35,6 +35,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.models import t2i_adapter as jt2i
 from mixofshow_tpu.pipelines import init_concepts as jinit
 from mixofshow_tpu.text import CLIPTokenizer as JTokenizer

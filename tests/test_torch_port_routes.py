@@ -5,13 +5,15 @@ launches by design, on the CPU.
 The kernels run only on the card (tests/test_torch_port_cuda.py,
 chip_smoke.py phase 3); here the route function is held to the shapes of
 the kernel table (PERF.md §6), and the wrappers' CUDA branch runs against a
-fake of `_build.cuda_lib` that records what the entry points are given.
+fake of `_build.cuda_lib` that records what the one entry point,
+`mos_attn_fwd`, is given.
 """
 import contextlib
 
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu_torch import ops
 from mixofshow_tpu_torch.ops import _build
 from mixofshow_tpu_torch.ops import flash_attention as fl
@@ -99,20 +101,25 @@ def test_an_unknown_route_is_refused():
         fl.launch_route(q, q, q, 'persistent')
 
 
+# mos_attn_fwd's arguments, in order
+ENTRY_ARGS = ('q', 'k', 'v', 'o', 'lse', 'B', 'Sq', 'Sk', 'H', 'D', 'kv_len',
+              'q_sb', 'q_ss', 'k_sb', 'k_ss', 'v_sb', 'v_ss', 'o_sb', 'o_ss',
+              'scale', 'dtype', 'route', 'stream')
+
+
 class _FakeLib:
-    """Stands in for the built library: records each entry point's
-    arguments and returns `rc`."""
+    """Stands in for the built library: records the entry point's
+    arguments, as ('attn', args) without an LSE and ('flash', args) with
+    one, and returns `rc`."""
 
     def __init__(self, rc=0):
         self.rc = rc
         self.calls = []
 
     def mos_attn_fwd(self, *args):
-        self.calls.append(('attn', args))
-        return self.rc
-
-    def mos_flash_fwd(self, *args):
-        self.calls.append(('flash', args))
+        assert len(args) == len(ENTRY_ARGS)
+        lse = args[ENTRY_ARGS.index('lse')]
+        self.calls.append(('attn' if lse is None else 'flash', args))
         return self.rc
 
 
@@ -130,9 +137,14 @@ def fake_card(monkeypatch):
     ops.reset_launch_counts()
 
 
+def _arg(call, name):
+    """The argument `name` of a recorded call."""
+    return call[1][ENTRY_ARGS.index(name)]
+
+
 def _route_arg(call):
-    """The route code passed to an entry point (before the stream)."""
-    return fl.ROUTES[call[1][-2]]
+    """The route passed to the entry point, by its name."""
+    return fl.ROUTES[_arg(call, 'route')]
 
 
 @pytest.mark.parametrize('d,design', [(40, 'pingpong'), (80, 'pingpong'),
@@ -143,6 +155,9 @@ def test_attn_fwd_passes_and_counts_its_route(fake_card, d, design):
         fa.attn_fwd(q, q, q)
         fa.attn_fwd(q, q, q, 50)
     assert [_route_arg(c) for c in fake_card.calls] == [design, design]
+    assert [c[0] for c in fake_card.calls] == ['attn', 'attn']
+    assert [_arg(c, 'kv_len') for c in fake_card.calls] == [64, 50]
+    assert [_arg(c, 'D') for c in fake_card.calls] == [d, d]
     assert fa.attn_fwd.launches == 2
     assert fa.attn_fwd.routes == {design: 2}
 
@@ -170,6 +185,10 @@ def test_flash_fwd_passes_and_counts_its_route(fake_card, dtype, d,
     assert o.shape == q.shape and lse.shape == (2, 2, 128)
     assert [(c[0], _route_arg(c)) for c in fake_card.calls] == [
         ('flash', design)]
+    call, = fake_card.calls
+    assert _arg(call, 'lse') == lse.data_ptr()
+    assert _arg(call, 'o') == o.data_ptr()
+    assert _arg(call, 'kv_len') == _arg(call, 'Sk') == 128
     assert fl.flash_fwd.launches == 1 and fl.flash_fwd.routes == {design: 1}
 
 

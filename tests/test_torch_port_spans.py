@@ -11,7 +11,8 @@ benchmark's readers of them (bench_port/spans.py).
     was queued keeps its own request's ordinal.
   * Nothing the program computes changes under the profiler: latents,
     images, the loss and the updated leaves are bitwise equal (one torch
-    thread: the CPU backward is not bitwise run to run with several).
+    thread, tests/torch_port_threads.py: the CPU backward is not bitwise
+    run to run with several).
   * The readers, on a hand-built trace and span list: idle time by the
     innermost span where a gap begins (also a span opened more than 64
     host operations before it, which the trace's own labeller misses),
@@ -24,6 +25,7 @@ import torch
 from PIL import Image
 from torch.profiler import ProfilerActivity, profile
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from bench_port import spans as readers
 from bench_port.trace import Traced
 from mixofshow_tpu_torch import zoo
@@ -48,13 +50,10 @@ FINETUNE = {'text_embedding': {'enable_tuning': True, 'lr': 1e-3},
 
 
 @pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _fresh_spans():
     profiling.reset()
     yield
     profiling.reset()
-    torch.set_num_threads(n)
 
 
 def _tiny(seed=0):

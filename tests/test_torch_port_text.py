@@ -7,6 +7,7 @@ import string
 import numpy as np
 import pytest
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.pipelines import concepts as jconcepts
 from mixofshow_tpu.text import tokenizer as jtok
 from mixofshow_tpu_torch.pipelines import concepts as pconcepts

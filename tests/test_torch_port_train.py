@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.convert.delta_io import \
     export_edlora_delta as jexport_delta
 from mixofshow_tpu.diffusion import ddpm as jddpm
@@ -502,18 +503,10 @@ def test_gradient_accumulation_updates_on_the_kth_step(params):
     """k = 2 micro-steps: nothing moves on the first; the update on the
     second is one step on the mean gradient (optax.MultiSteps).
 
-    One CPU thread: multithreaded MKL GEMMs are not bitwise reproducible
-    from run to run, and Adam's first step turns those ulps on the
-    smallest gradients into ~1e-6 of parameter, the test's own bound."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        _check_gradient_accumulation(params)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _check_gradient_accumulation(params):
+    It relies on the one CPU thread of every port test file
+    (tests/torch_port_threads.py): multithreaded MKL GEMMs are not bitwise
+    reproducible from run to run, and Adam's first step turns those ulps on
+    the smallest gradients into ~1e-6 of parameter, the test's own bound."""
     _, pt = _trainers(params, attn_reg_weight=None)
     batch = _batch(pt)
     draws = [{k: torch.as_tensor(v) for k, v in

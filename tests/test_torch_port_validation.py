@@ -12,7 +12,8 @@ Tolerances:
     same product summed in another order); alpha 0 leaves them bitwise;
   * train-state save/load and resume: bitwise;
   * the train CLI's losses with validation on and off: bitwise.
-    These two run on one CPU thread (`one_thread`): the CPU backward is not
+    These two rely on the one CPU thread of every port test file
+    (tests/torch_port_threads.py): the CPU backward is not
     run-to-run reproducible with several threads (two identical fresh runs
     of the tiny trainer differ in their gradients after one backward);
     forward passes are;
@@ -40,6 +41,7 @@ import torch
 import yaml
 from PIL import Image
 
+import torch_port_threads  # noqa: F401  (one torch thread)
 from mixofshow_tpu.convert import diffusers_export as jexport
 from mixofshow_tpu.convert import diffusers_import as jimport
 from mixofshow_tpu.convert.convert_edlora import convert_edlora as jconvert
@@ -99,14 +101,6 @@ def _port_modules(b):
     return (load_jax_params(UNet(U, 'cpu'), b.unet),
             load_jax_params(CLIPTextModel(C, 'cpu'), b.text_encoder),
             load_jax_params(AutoencoderKL(V, 'cpu'), b.vae))
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pngs(root):
@@ -305,8 +299,7 @@ def _assert_same(a, b, path=''):
 
 
 @pytest.mark.parametrize('accum,threshold', [(1, 0.55), (2, 0.0)])
-def test_resume_from_a_train_state_is_exact(tmp_path, one_thread, accum,
-                                            threshold):
+def test_resume_from_a_train_state_is_exact(tmp_path, accum, threshold):
     """k = 2 updates, save, load into a fresh trainer, m = 1 more: bitwise
     the state of 3 updates in one run (fixed batches, injected draws); the
     saved file round-trips bitwise. threshold 0 freezes the embedding at
@@ -381,8 +374,7 @@ def _train(args, report=None):
     return steps
 
 
-def test_train_cli_validates_during_saves_and_resumes(tmp_path, monkeypatch,
-                                                     one_thread):
+def test_train_cli_validates_during_saves_and_resumes(tmp_path, monkeypatch):
     """SMOKE_YML (bf16, 2 steps) with val_during_save and a save every
     step: the deltas, the train states, the PNGs and the grids are written;
     the losses equal those of the same run with validation off, bitwise;

@@ -3,9 +3,9 @@
 `spawn(world, fn, *args)` starts `world` processes (torch.multiprocessing,
 spawn) with torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR, MASTER_PORT on a free localhost port) and one CPU thread
-each, and runs `fn(rank, *args)` in each; `fn` must be importable (a
-module-level function) and writes what it finds under a directory the
-test reads. `join(ctx)` waits for the ranks and re-raises a rank's error.
+each (tests/torch_port_threads.py, imported with this module), and runs
+`fn(rank, *args)` in each; `fn` must be importable (a module-level
+function) and writes what it finds under a directory the test reads. `join(ctx)` waits for the ranks and re-raises a rank's error.
 
 This module imports no JAX, so that a rank starts in a few seconds.
 """
@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
+import torch_port_threads  # noqa: F401  (one torch thread)
+
 
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
@@ -30,7 +32,6 @@ def _entry(rank, world, port, fn, args):
     os.environ.update({'RANK': str(rank), 'WORLD_SIZE': str(world),
                        'LOCAL_RANK': str(rank), 'MASTER_ADDR': '127.0.0.1',
                        'MASTER_PORT': str(port)})
-    torch.set_num_threads(1)
     fn(rank, *args)
 
 
